@@ -7,8 +7,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card: present (there is no CPU path), its name and power limit
    from nvidia-smi, TF32 off for matmuls and cuDNN;
-2. build: compile ``src/repro_torch/csrc/distance.cu`` with nvcc for
-   sm_90a and print ptxas' registers / shared memory;
+2. build: compile the three ``src/repro_torch/csrc/*.cu`` sources with
+   nvcc for sm_90a, one process each, started together, and print
+   ptxas' registers / shared memory;
 3. kernel vs plain: the seed-row kernel against its plain PyTorch version
    (and a float64 evaluation) at the fleet shape m=16384, n=128 with
    k = 1, 8, 64, 256 seeds and at a ragged (1000, 37, 3), on fleet-like
@@ -22,11 +23,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    snapshot must equal the committed ``VERDICTS_synthetic.json``;
 5. fleet: a 16384-shard x 128-region trace with a 2048-shard compute
    straggler and an I/O hotspot, saved, loaded and analyzed on the kernel
-   lane and on the exact numpy lane; the two verdicts must be equal.
+   lane and on the exact numpy lane; the two verdicts must be equal;
+6. serving kernels vs plain: RMSNorm at (1, 3072), (256, 3072) and
+   (300, 3840) and attention at gemma-7b's decode and 256-token prefill
+   over a 545-slot cache (half unwritten at decode) and at danube's GQA
+   with a 4096 window over a wrapped 4096-slot ring, each in float32
+   (tolerance 2e-5) and bf16 (3e-2 against the float32 plain version);
+   CUDA-event and profiler times beside the plain version, one library
+   call and the bound;
+7. model parity: gemma-7b's full width cut to 2 layers, float32, seeded
+   weights on the host and a copy on the card; a 16-token prefill chunk
+   and 4 greedy decode steps on each; logits within 1e-4 of their scale,
+   greedy tokens equal;
+8. serving: gemma-7b FULL in bf16 through ``repro_torch.launch.serve``
+   (4 lanes, 8 requests of 512 prompt tokens in 256-token chunks and 32
+   generated tokens), every model call launching 57 RMSNorms and 28
+   attentions; one lane's decode call profiled; the served trace
+   analyzed on the kernel and numpy lanes with equal verdicts.
 
-Phases 4 and 5 count the kernel's launches from 0 and fail if the main
-path never launched it.  The last two lines of standard output are a
-``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
+Phases 4, 5 and 8 count the kernels' launches from 0 and fail if the
+main path never launched them.  The last two lines of standard output
+are a ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device":
+{...}}``.
 
 The phases are importable functions, so the CPU tests rehearse them at a
 small size with ``device="cpu"``; ``main()`` itself refuses to run
@@ -59,6 +77,9 @@ RAGGED = (1000, 37, 3)
 MAIN_PATH_SHAPE = (FLEET_M, FLEET_N, 1)
 TPU_KERNEL = "src/repro/kernels/distance.py:56"
 KERNEL_SOURCE = "src/repro_torch/csrc/distance.cu"
+KERNEL_SOURCES = ("distance", "rmsnorm", "flash_attention")
+TPU_KERNELS = {"rmsnorm": "src/repro/kernels/rmsnorm.py:23",
+               "flash_attention": "src/repro/kernels/flash_attention.py:84"}
 
 
 def log(msg: str) -> None:
@@ -204,24 +225,23 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(m: int, n: int, k: int):
-    """Device time per launch of the CUDA kernel alone, from
-    torch.profiler's CUPTI trace (None when it records no device time).
-    Back-to-back calls through the wrapper can be bound by the host's
-    per-call work instead; this separates the two."""
+def device_ms(fn, kernel_name: str, iters: int = 100):
+    """Device time per launch of the CUDA kernel ``kernel_name`` alone
+    over ``iters`` calls of ``fn``, from torch.profiler's CUPTI trace
+    (None when it records no device time).  Back-to-back calls through
+    the wrapper can be bound by the host's per-call work instead; this
+    separates the two."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import distance as D
-    pts, sq, idx = kernel_inputs(m, n, k, "cuda")
-    D.multi_seed_rows(pts, sq, idx)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(100):
-            D.multi_seed_rows(pts, sq, idx)
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
     for e in prof.key_averages():
-        if "multi_seed_rows_kernel" in e.key:
+        if kernel_name in e.key:
             total_us += e.device_time_total
             count += e.count
     return total_us / count / 1e3 if count and total_us > 0 else None
@@ -237,7 +257,8 @@ def time_kernel(m: int, n: int, k: int) -> dict:
                             max(3, 200 // k)),
         "library_ms": cuda_ms(lambda: library_rows(pts, sq, idx), 200),
         "bound_ms": b_ms, "bound_by": b_by,
-        "device_ms": kernel_device_ms(m, n, k),
+        "device_ms": device_ms(lambda: D.multi_seed_rows(pts, sq, idx),
+                               "multi_seed_rows_kernel"),
     }
 
 
@@ -247,15 +268,15 @@ def corpus_phase(device) -> dict:
     """The 19 synthetic corpus entries on the kernel lane, held to the
     committed verdict snapshot.  Returns the kernel's launch count."""
     import torch
+    from repro_torch import kernels as K
     from repro_torch.cli.snapshot_verdicts import drift, snapshot
-    from repro_torch.kernels import distance as D
     with open(ROOT / "VERDICTS_synthetic.json") as f:
         baseline = json.load(f)
-    D.reset_launches()
+    K.reset_launches()
     t0 = time.perf_counter()
     current = snapshot(0, "kernel", device)
     wall = time.perf_counter() - t0
-    launches = D.LAUNCHES["multi_seed_rows"]
+    launches = K.LAUNCHES["multi_seed_rows"]
     bad = drift(baseline, current)
     if bad or set(current) != set(baseline):
         raise AssertionError(f"kernel-lane verdicts drifted from "
@@ -313,8 +334,8 @@ def fleet_phase(m: int, n: int, straggler_procs: int, device) -> dict:
     """Save -> load -> analyze the fleet trace on both lanes; the verdict
     docs must be equal and the kernel lane must have launched the kernel."""
     import torch
+    from repro_torch import kernels as K
     from repro_torch.core import AutoAnalyzer, RegionTrace, tree_from_schema
-    from repro_torch.kernels import distance as D
     _, collector, planted = fleet_collector(m, n, straggler_procs)
     with tempfile.TemporaryDirectory() as tmp:
         path = collector.collect_trace().save(str(pathlib.Path(tmp) / "t.npz"))
@@ -323,14 +344,14 @@ def fleet_phase(m: int, n: int, straggler_procs: int, device) -> dict:
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    D.reset_launches()
+    K.reset_launches()
     t0 = time.perf_counter()
     res_k = AutoAnalyzer(tree, distance_backend="kernel",
                          device=device).analyze_trace(trace)
     if on_card:
         torch.cuda.synchronize()
     wall_k = time.perf_counter() - t0
-    launches = D.LAUNCHES["multi_seed_rows"]
+    launches = K.LAUNCHES["multi_seed_rows"]
     t0 = time.perf_counter()
     res_n = AutoAnalyzer(tree, distance_backend="numpy").analyze_trace(trace)
     wall_n = time.perf_counter() - t0
@@ -359,6 +380,408 @@ def fleet_phase(m: int, n: int, straggler_procs: int, device) -> dict:
     }
 
 
+# -- phase 6 ---------------------------------------------------------------
+
+# The serving path's shapes (gemma-7b FULL, bf16, at --prompt-len 512
+# --chunk 256 --gen 32: a 545-slot cache) and danube's GQA + window.
+RMS_EPS = 1e-6
+RMS_SHAPES = ((1, 3072), (256, 3072), (300, 3840))
+GEMMA_SLOTS = 545
+UNWRITTEN = 2 ** 30
+ATTN_CASES = ("gemma-decode", "gemma-prefill", "danube-decode",
+              "danube-prefill")
+# The main path launches the decode shapes most (57 and 28 launches per
+# decode call, 8 x 32 decode calls against 16 prefill chunks); those go
+# into the machine-readable kernels line, the prefill shapes beside them.
+RMS_MAIN, RMS_PREFILL = (1, 3072), (256, 3072)
+ATTN_MAIN, ATTN_PREFILL = "gemma-decode", "gemma-prefill"
+# Tolerances of the kernels against their plain versions, |got - want| <=
+# tol + tol * |want| per element: float32 at the reference kernel tests'
+# 2e-5; bf16 kernels against the float32 plain version of the same
+# (bf16-rounded) inputs at tests/test_kernels.py's bf16 3e-2.  Both sides
+# of the bf16 check compute in float32, so the kernel may add only the
+# rounding of its output: each element is also held to half a bf16 ulp,
+# |got - want| <= 2^-8 * |want| + BF16_ROUND_ATOL.
+F32_TOL, BF16_TOL = 2e-5, 3e-2
+BF16_ROUND_ATOL = 1e-3
+BF16_FLOP_PER_S = 989e12
+
+
+def attention_case(name: str) -> dict:
+    """Shape and positions of one attention check.  gemma: H = KV = 16,
+    dh = 256 over the 545-slot cache; decode at position 272 with slots
+    273.. unwritten, prefill of the second 256-token chunk (positions
+    256..511 over written slots 0..511).  danube: H = 32, KV = 8,
+    dh = 120, window 4096 over a 4096-slot ring at position 5000 (slot i
+    holds position i + 4096 for i <= 904, else i), decode and a 256-token
+    chunk ending there."""
+    import numpy as np
+    if name.startswith("gemma"):
+        decode = name == "gemma-decode"
+        written = 273 if decode else 512
+        k_pos = np.full(GEMMA_SLOTS, UNWRITTEN, np.int64)
+        k_pos[:written] = np.arange(written)
+        q_pos = np.arange(written - (1 if decode else 256), written)
+        return dict(H=16, KV=16, dh=256, window=None, q_pos=q_pos,
+                    k_pos=k_pos)
+    slots, last = 4096, 5000
+    i = np.arange(slots)
+    k_pos = np.where(i <= last - slots, i + slots, i)
+    Q = 1 if name == "danube-decode" else 256
+    return dict(H=32, KV=8, dh=120, window=4096,
+                q_pos=np.arange(last - Q + 1, last + 1), k_pos=k_pos)
+
+
+def attention_shape(name: str) -> list:
+    """[B, Q, H, KV, dh, K] of one attention case."""
+    c = attention_case(name)
+    return [1, len(c["q_pos"]), c["H"], c["KV"], c["dh"], len(c["k_pos"])]
+
+
+def rmsnorm_inputs(n: int, d: int, dtype, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(7919 * n + d)
+    x = 2.0 * rng.standard_normal((n, d)) + 0.5
+    w = 0.1 * rng.standard_normal(d)
+    return (torch.as_tensor(x, dtype=dtype, device=device),
+            torch.as_tensor(w, dtype=dtype, device=device))
+
+
+def attention_inputs(name: str, dtype, device):
+    import numpy as np
+    import torch
+    c = attention_case(name)
+    rng = np.random.default_rng(ATTN_CASES.index(name) + 17)
+    Q, K = len(c["q_pos"]), len(c["k_pos"])
+    q = rng.standard_normal((1, Q, c["H"], c["dh"]))
+    k = rng.standard_normal((1, K, c["KV"], c["dh"]))
+    v = rng.standard_normal((1, K, c["KV"], c["dh"]))
+    ts = [torch.as_tensor(a, dtype=dtype, device=device) for a in (q, k, v)]
+    pos = [torch.as_tensor(a, dtype=torch.int32, device=device)
+           for a in (c["q_pos"], c["k_pos"])]
+    return (*ts, *pos), c["window"]
+
+
+def _close(got, want, tol: float, what: str) -> float:
+    """Max |got - want|; raises where an element is off by more than
+    tol + tol * |want|, or, for a bf16 result, by more than its output
+    rounding."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    bad = err > tol + tol * want.float().abs()
+    if got.dtype == torch.bfloat16:
+        bad |= err > 2.0 ** -8 * want.float().abs() + BF16_ROUND_ATOL
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} "
+                             f"elements off, max |err| {float(err.max())}")
+    return float(err.max())
+
+
+def check_rmsnorm(n: int, d: int, device) -> dict:
+    """The kernel against its plain version, float32 and bf16."""
+    import torch
+    from repro_torch import kernels as K
+    errs = {}
+    for dtype, tol, tag in ((torch.float32, F32_TOL, "f32"),
+                            (torch.bfloat16, BF16_TOL, "bf16")):
+        x, w = rmsnorm_inputs(n, d, dtype, device)
+        got = K.rmsnorm(x, w, RMS_EPS)
+        want = K.rmsnorm_ref(x.float(), w.float(), RMS_EPS)
+        if got.dtype != dtype or got.shape != x.shape:
+            raise AssertionError(f"rmsnorm gave {got.dtype} {got.shape}")
+        errs[tag] = _close(got, want, tol, f"rmsnorm ({n}, {d}) {tag}")
+    return errs
+
+
+def check_attention(name: str, device) -> dict:
+    """The kernel against its plain version, float32 and bf16."""
+    import torch
+    from repro_torch import kernels as K
+    errs = {}
+    for dtype, tol, tag in ((torch.float32, F32_TOL, "f32"),
+                            (torch.bfloat16, BF16_TOL, "bf16")):
+        (q, k, v, qp, kp), window = attention_inputs(name, dtype, device)
+        got = K.flash_attention(q, k, v, qp, kp, causal=True, window=window)
+        want = K.flash_attention_ref(q.float(), k.float(), v.float(), qp, kp,
+                                     causal=True, window=window)
+        if got.dtype != dtype or got.shape != q.shape:
+            raise AssertionError(f"attention gave {got.dtype} {got.shape}")
+        errs[tag] = _close(got, want, tol, f"attention {name} {tag}")
+    return errs
+
+
+def rmsnorm_bound_ms(n: int, d: int, itemsize: int) -> tuple:
+    """x and w read once, y written once; 4 float32 operations an
+    element (square-add, scale, 1 + w, product)."""
+    t_bytes = (2 * n * d + d) * itemsize / HBM_BYTES_PER_S
+    t_ops = 4 * n * d / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound_ms(name: str, itemsize: int) -> tuple:
+    """q, k, v and the positions read once, the output written once; 4·dh
+    operations (score and P·V) for every unmasked (query, key, head) of
+    this case's positions, at the tensor-core rate for bf16 and the
+    float32 rate otherwise."""
+    import numpy as np
+    c = attention_case(name)
+    Q, K = len(c["q_pos"]), len(c["k_pos"])
+    qp, kp = c["q_pos"][:, None], c["k_pos"][None, :]
+    live = kp <= qp
+    if c["window"] is not None:
+        live &= kp > qp - c["window"]
+    nbytes = (itemsize * (2 * Q * c["H"] * c["dh"] + 2 * K * c["KV"] * c["dh"])
+              + 4 * (Q + K))
+    ops = 4 * c["dh"] * c["H"] * int(np.count_nonzero(live))
+    rate = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_rmsnorm(n: int, d: int) -> dict:
+    """bf16 (the served dtype): the kernel, its plain version and one
+    library call, ``F.rms_norm`` on float32 copies with weight 1 + w
+    (timed only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    x, w = rmsnorm_inputs(n, d, torch.bfloat16, "cuda")
+    xf, w1 = x.float(), 1.0 + w.float()
+    b_ms, b_by = rmsnorm_bound_ms(n, d, 2)
+    return {
+        "ms": cuda_ms(lambda: K.rmsnorm(x, w, RMS_EPS), 200),
+        "device_ms": device_ms(lambda: K.rmsnorm(x, w, RMS_EPS),
+                               "rmsnorm_kernel"),
+        "plain_ms": cuda_ms(lambda: K.rmsnorm_ref(x, w, RMS_EPS), 200),
+        "library_ms": cuda_ms(lambda: F.rms_norm(xf, (d,), w1, RMS_EPS),
+                              200),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def time_attention(name: str) -> dict:
+    """bf16: the kernel, its plain version and one library call,
+    ``F.scaled_dot_product_attention`` with a boolean mask built from the
+    positions over k/v repeated to the query heads (timed only)."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    (q, k, v, qp, kp), window = attention_inputs(name, torch.bfloat16,
+                                                 "cuda")
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    mask = kp[None, :] <= qp[:, None]
+    if window is not None:
+        mask &= kp[None, :] > qp[:, None] - window
+    scale = 1.0 / math.sqrt(q.shape[3])
+    b_ms, b_by = attention_bound_ms(name, 2)
+
+    def kernel():
+        return K.flash_attention(q, k, v, qp, kp, causal=True, window=window)
+
+    def plain():
+        return K.flash_attention_ref(q, k, v, qp, kp, causal=True,
+                                     window=window)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              scale=scale)
+    return {
+        "ms": cuda_ms(kernel, 100),
+        "device_ms": device_ms(kernel, "flash_attention_kernel", 50),
+        "plain_ms": cuda_ms(plain, 20), "library_ms": cuda_ms(library, 100),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+# -- phase 7 ---------------------------------------------------------------
+
+# Logits of the card's kernel path against the host's plain path, both
+# float32 with TF32 off: max |card - host| <= PARITY_RTOL * max |host|.
+# The two differ only in summation order (cuBLAS and the kernels against
+# the CPU's BLAS and the plain versions), about 1e-6 of the logits' scale.
+PARITY_RTOL = 1e-4
+
+
+def parity_config():
+    """gemma-7b at full width, cut to 2 layers, in float32."""
+    from repro_torch.configs import get_arch
+    return get_arch("gemma-7b").full.with_(
+        n_layers=2, dtype="float32", param_dtype="float32")
+
+
+def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
+                       seed: int = 0) -> dict:
+    """Seeded weights on the host, copied to ``device``; a ``chunk``-token
+    prefill then ``steps`` greedy decode steps on each, each side feeding
+    its own greedy tokens.  Logits must agree within PARITY_RTOL of their
+    scale and the greedy tokens must be equal; on the card every model
+    call must launch 2L+1 RMSNorms and L attentions."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.models.transformer import Transformer
+    host = Transformer(cfg, "cpu", seed)
+    card = Transformer(cfg, device, seed=None)
+    card.load_state_dict(host.state_dict())
+    prompt = np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab, size=(1, chunk), dtype=np.int32)
+    out = {}
+    for side, model in (("card", card), ("host", host)):
+        dev = model.device
+        K.reset_launches()
+        state = model.init_decode_state(1, chunk + steps + 1)
+        logits, _ = model.decode_step(
+            state, torch.as_tensor(prompt, device=dev),
+            torch.arange(chunk, dtype=torch.int32, device=dev))
+        rows = [logits[0].cpu()]
+        tokens = []
+        for i in range(steps + 1):
+            tokens.append(int(rows[-1][-1].argmax()))
+            if i == steps:
+                break
+            logits, _ = model.decode_step(
+                state, torch.tensor([[tokens[-1]]], dtype=torch.int32,
+                                    device=dev), chunk + i)
+            rows.append(logits[0].cpu())
+        out[side] = (torch.cat(rows), tokens, dict(K.LAUNCHES))
+    (card_rows, card_tokens, launches), (host_rows, host_tokens, _) = \
+        out["card"], out["host"]
+    if not bool(torch.isfinite(card_rows).all()):
+        raise AssertionError("non-finite logits on the card")
+    err = float((card_rows - host_rows).abs().max())
+    scale = float(host_rows.abs().max())
+    if err > PARITY_RTOL * scale:
+        raise AssertionError(f"model parity: max |card - host| {err} above "
+                             f"{PARITY_RTOL} x {scale}")
+    if card_tokens != host_tokens:
+        raise AssertionError(f"greedy tokens differ: card {card_tokens}, "
+                             f"host {host_tokens}")
+    calls = steps + 1
+    if torch.device(device).type == "cuda" and (
+            launches["rmsnorm"] != (2 * cfg.n_layers + 1) * calls
+            or launches["flash_attention"] != cfg.n_layers * calls):
+        raise AssertionError(f"model parity run launched {launches} for "
+                             f"{calls} model calls")
+    return {"max_abs_err": err, "logit_scale": scale, "tokens": card_tokens,
+            "launches": launches, "calls": calls}
+
+
+# -- phase 8 ---------------------------------------------------------------
+
+SERVE_ARGV = ("--arch", "gemma-7b", "--lanes", "4", "--requests", "8",
+              "--prompt-len", "512", "--chunk", "256", "--gen", "32",
+              "--arrival-rate", "2.0", "--seed", "0")
+
+
+def serve_phase(argv, device) -> dict:
+    """Serve the traffic through ``repro_torch.launch.serve`` with launch
+    counts from 0; every model call must have launched 2L+1 RMSNorms and L
+    attentions, every request must complete with its tokens in the
+    vocabulary, and the saved serving trace, analyzed on the kernel lane
+    and on the numpy lane, must give equal verdict docs."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import (CPU_TIME, WALL_TIME, AutoAnalyzer,
+                                  RegionTrace, tree_from_schema)
+    from repro_torch.launch import serve
+    on_card = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "serve.npz")
+        args = serve.parser().parse_args(
+            [*argv, "--device", str(device), "--trace", path])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        engine, backend = serve.run(args)
+        wall = time.perf_counter() - t0
+        launches = {k: K.LAUNCHES[k] for k in ("rmsnorm", "flash_attention")}
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        trace = RegionTrace.load(path)
+    cfg, calls = backend.cfg, backend.model_calls
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * calls,
+            "flash_attention": cfg.n_layers * calls}
+    if on_card and (launches != want or calls == 0):
+        raise AssertionError(f"serving launched {launches}, want {want} for "
+                             f"{calls} model calls")
+    if engine.completed != args.requests or sorted(backend.outputs) != \
+            list(range(args.requests)):
+        raise AssertionError(f"served {engine.completed} of {args.requests}")
+    for rid, toks in backend.outputs.items():
+        if len(toks) != args.gen or not all(0 <= t < cfg.vocab
+                                            for t in toks):
+            raise AssertionError(f"request {rid} generated {toks}")
+    tree = tree_from_schema(trace.schema)
+    for phase in ("prefill", "decode", "sample"):
+        j = trace.col(tree.by_path(f"serve/{phase}").region_id)
+        for metric in (WALL_TIME, CPU_TIME):
+            col = trace.metric(metric)[..., j]
+            if not (np.isfinite(col).all() and col.sum() > 0):
+                raise AssertionError(f"serving trace: {metric} of "
+                                     f"serve/{phase} is {col.sum()}")
+    K.reset_launches()
+    res_k = AutoAnalyzer(tree, distance_backend="kernel",
+                         device=device).analyze_trace(trace)
+    analysis_launches = K.LAUNCHES["multi_seed_rows"]
+    res_n = AutoAnalyzer(tree, distance_backend="numpy").analyze_trace(trace)
+    doc_k, doc_n = res_k.verdict.doc(), res_n.verdict.doc()
+    if doc_k != doc_n:
+        raise AssertionError(f"serving verdicts differ between lanes:\n"
+                             f"kernel {doc_k}\nnumpy  {doc_n}")
+    return {"summary": serve.summary(engine), "wall_s": wall,
+            "breakdown": decode_breakdown(backend) if on_card else None,
+            "model_calls": calls, "launches": launches,
+            "max_memory_allocated": peak, "verdict": doc_n,
+            "analysis_launches": analysis_launches,
+            "trace_shape": [trace.n_steps, trace.n_processes,
+                            len(trace.region_ids)]}
+
+
+def decode_breakdown(backend, steps: int = 8) -> dict:
+    """Where one lane's decode call spends the card's time: a fresh lane
+    state, one prefill chunk, then ``steps`` greedy decode calls under
+    torch.profiler (CUDA activity only).  Returns the host wall per call,
+    the device's busy time per call (the sum of its kernels' and copies'
+    times), the idle share 1 - busy / wall, the device operations per call
+    and the kernels that took longest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    api, model, k = backend.api, backend.model, backend.prefill_chunk
+    state = api.init_decode_state(1, backend.max_len)
+    logits, _ = api.decode_step(
+        model, state, torch.zeros((1, k), dtype=torch.int32,
+                                  device=backend.device),
+        torch.arange(k, dtype=torch.int32, device=backend.device))
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, _ = api.decode_step(model, state, tok, k + i)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Only rows with device time: the CUDA activity also records runtime
+    # calls (cudaLaunchKernel, ...), which take none.
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    return {"wall_ms": wall / steps * 1e3, "busy_ms": busy / steps * 1e3,
+            "idle_share": 1.0 - busy / wall,
+            "launches": sum(r[1] for r in rows) / steps,
+            "top": [(t / steps / 1e3, c // steps, key[:90])
+                    for t, c, key in rows[:10]]}
+
+
 # -- driver ----------------------------------------------------------------
 
 def main() -> int:
@@ -376,14 +799,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = build.load_library("distance")
-    log(f"[2] built {lib.path.name} in {time.perf_counter() - t0:.1f} s "
-        f"({'fresh' if lib.built else 'cached'} build); ptxas:")
-    for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "Compiling" in line or "spill" in line:
-            log("    " + line.strip())
+    libs = build.load_libraries(KERNEL_SOURCES)
+    log(f"[2] built {len(libs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs.values():
+        log(f"[2] {lib.path.name} ({'fresh' if lib.built else 'cached'} "
+            f"build); ptxas:")
+        for line in lib.ptxas_log.splitlines():
+            if "registers" in line or "Compiling" in line or "spill" in line:
+                log("    " + line.strip())
 
     # 3. kernel vs plain
     timings = {}
@@ -421,6 +847,57 @@ def main() -> int:
     for cum, calls, name in fleet["breakdown"]:
         log(f"    {cum:10.4f} {calls:8d}  {name}")
 
+    # 6. the serving path's kernels vs plain, float32 and bf16
+    rms_err, rms_t = {}, {}
+    for n, d in RMS_SHAPES:
+        rms_err[(n, d)] = check_rmsnorm(n, d, "cuda")
+        rms_t[(n, d)] = t = time_rmsnorm(n, d)
+        log(f"[6] rmsnorm ({n}, {d}): max|kernel-plain| f32 "
+            f"{rms_err[(n, d)]['f32']:.6g} (tolerance {F32_TOL}), bf16 "
+            f"{rms_err[(n, d)]['bf16']:.6g} (tolerance {BF16_TOL}); bf16 "
+            f"kernel {t['ms']:.6f} ms per call, device {t['device_ms']} ms,"
+            f" plain {t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} "
+            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    attn_err, attn_t = {}, {}
+    for name in ATTN_CASES:
+        attn_err[name] = check_attention(name, "cuda")
+        attn_t[name] = t = time_attention(name)
+        log(f"[6] attention {name}: max|kernel-plain| f32 "
+            f"{attn_err[name]['f32']:.6g} (tolerance {F32_TOL}), bf16 "
+            f"{attn_err[name]['bf16']:.6g} (tolerance {BF16_TOL}); bf16 "
+            f"kernel {t['ms']:.6f} ms per call, device {t['device_ms']} ms,"
+            f" plain {t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} "
+            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+
+    # 7. model parity, card vs host
+    t0 = time.perf_counter()
+    parity = model_parity_phase(parity_config(), "cuda")
+    log(f"[7] gemma-7b width, 2 layers, f32: max|card-host| logits "
+        f"{parity['max_abs_err']:.6g} of scale {parity['logit_scale']:.6g} "
+        f"(tolerance {PARITY_RTOL} x scale); greedy tokens equal "
+        f"{parity['tokens']}; card launches {parity['launches']} over "
+        f"{parity['calls']} model calls; {time.perf_counter() - t0:.1f} s")
+
+    # 8. serving gemma-7b FULL on the card, then its trace analyzed
+    served = serve_phase(SERVE_ARGV, "cuda")
+    log(f"[8] serve {' '.join(SERVE_ARGV)}: {json.dumps(served['summary'])}")
+    log(f"[8] {served['model_calls']} model calls, launches "
+        f"{served['launches']} (= 57 and 28 per call); "
+        f"max_memory_allocated {served['max_memory_allocated']} bytes; "
+        f"phase wall {served['wall_s']:.1f} s (model init included); trace "
+        f"(steps, lanes, regions) {served['trace_shape']}")
+    bd = served["breakdown"]
+    log(f"[8] one lane's decode call (torch.profiler, CUDA only): host wall "
+        f"{bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} ms, idle "
+        f"share {bd['idle_share']:.4f}, {bd['launches']:.1f} device "
+        f"operations per call; kernels by device time (ms per call, "
+        f"launches per call):")
+    for t, c, key in bd["top"]:
+        log(f"    {t:10.5f} {c:6d}  {key}")
+    log(f"[8] verdict, equal on the kernel and numpy lanes "
+        f"({served['analysis_launches']} seed-row launches): "
+        f"{json.dumps(served['verdict'], sort_keys=True)}")
+
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
         "name": "multi_seed_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -431,7 +908,27 @@ def main() -> int:
         "library_ms": main_t["library_ms"],
         "device_ms": main_t["device_ms"], "shape": list(MAIN_PATH_SHAPE),
         "corpus_launches": corpus["launches"],
+        "serve_trace_launches": served["analysis_launches"],
     }]
+    for name, errs, times, main, prefill, shape in (
+            ("rmsnorm", rms_err, rms_t, RMS_MAIN, RMS_PREFILL, list),
+            ("flash_attention", attn_err, attn_t, ATTN_MAIN, ATTN_PREFILL,
+             attention_shape)):
+        t = times[main]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": TPU_KERNELS[name],
+            "launches": served["launches"][name],
+            "max_abs_err": max(e["f32"] for e in errs.values()),
+            "max_abs_err_bf16": max(e["bf16"] for e in errs.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "shape": shape(main), "dtype": "bfloat16",
+            "prefill": {"shape": shape(prefill), **times[prefill]},
+            "model_calls": served["model_calls"],
+        })
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

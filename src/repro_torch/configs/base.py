@@ -1,17 +1,22 @@
-"""Model configs (data only, copied from the reference ``repro.configs``
-and held equal to it by tests/test_torch_configs_scenarios.py).
+"""Model configs (copied from the reference ``repro.configs`` and held
+equal to it by tests/test_torch_configs_scenarios.py).
 
 Each architecture the port uses provides a module
 ``repro_torch.configs.<id>`` with ``FULL`` (the exact published config)
-and ``SMOKE`` (a reduced same-family config).  Today only the smoke
-configs that ``scenarios.corpus.model_region_tree`` builds region trees
-from are here; the other architectures, parameter counting and the input
-shape table come with the models.  Dtypes are kept as strings.
+and ``SMOKE`` (a reduced same-family config).  Here are the four whose
+smoke configs ``scenarios.corpus.model_region_tree`` builds region trees
+from, the serving launcher's default ``st-100m``, and two dense GQA
+architectures the model tests reach (``mistral-nemo-12b``, and
+``h2o-danube-3-4b`` with its sliding window).  Dtypes are kept as strings;
+:meth:`ModelConfig.activation_dtype` and :meth:`ModelConfig.parameter_dtype`
+turn them into torch dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +99,85 @@ class ModelConfig:
     source: str = ""
     notes: str = ""
 
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def attn_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    def activation_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def parameter_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # -- parameter counting (for 6ND model flops) -------------------------
+    def param_count(self) -> int:
+        d, dh, H, KV = self.d_model, self.resolved_head_dim, self.n_heads, self.n_kv_heads
+        embed = self.vocab * d
+        out_head = 0 if self.tie_embeddings else self.vocab * d
+
+        def attn_params() -> int:
+            if self.mla:
+                m = self.mla
+                q = d * H * (m.nope_head_dim + m.rope_head_dim)
+                kv_a = d * (m.kv_lora_rank + m.rope_head_dim)
+                kv_b = m.kv_lora_rank * H * (m.nope_head_dim + m.v_head_dim)
+                o = H * m.v_head_dim * d
+                return q + kv_a + kv_b + o
+            return d * H * dh + 2 * d * KV * dh + H * dh * d
+
+        def mlp_params(ff: int) -> int:
+            return 3 * d * ff  # gate, up, down
+
+        def layer_params() -> int:
+            p = 2 * d  # norms
+            if self.family in ("ssm",):
+                # rwkv6 time-mix + channel-mix (approximate real layout)
+                tm = 4 * d * d + d * dh + 6 * d  # r,k,v,g,o + decay lora + mixes
+                cm = d * self.d_ff * 2
+                return p + tm + cm
+            p += attn_params() if self.family != "ssm" else 0
+            if self.moe:
+                mo = self.moe
+                p += d * mo.n_experts  # router
+                p += mo.n_experts * mlp_params(mo.d_ff)
+                p += mo.n_shared * mlp_params(mo.d_ff)
+            else:
+                p += mlp_params(self.d_ff)
+            return p
+
+        n_dec = self.n_layers
+        total = embed + out_head + d  # final norm
+        if self.family == "encdec":
+            # encoder self-attn+mlp, decoder self+cross+mlp
+            enc = self.n_encoder_layers * (attn_params() + mlp_params(self.d_ff) + 2 * d)
+            dec = n_dec * (2 * attn_params() + mlp_params(self.d_ff) + 3 * d)
+            return total + enc + dec
+        if self.family == "hybrid":
+            r = self.recurrent
+            lru = r.lru_width or d
+            n_rec = sum(1 for i in range(self.n_layers)
+                        if r.block_pattern[i % len(r.block_pattern)] == "rec")
+            n_att = self.n_layers - n_rec
+            rec_p = 2 * d * lru + lru * d + 2 * lru + r.conv_width * lru + 2 * d
+            att_p = attn_params() + 2 * d
+            mlp_p = mlp_params(self.d_ff) + d
+            return total + n_rec * rec_p + n_att * att_p + self.n_layers * mlp_p
+        return total + n_dec * layer_params()
+
+    def active_param_count(self) -> int:
+        """Active params per token (= param_count for dense)."""
+        if not self.moe:
+            return self.param_count()
+        mo = self.moe
+        inactive = (mo.n_experts - mo.top_k) * 3 * self.d_model * mo.d_ff
+        return self.param_count() - self.n_layers * inactive
 
 
 _REGISTRY: Dict[str, "ArchEntry"] = {}
@@ -126,8 +208,9 @@ def list_archs() -> List[str]:
     return sorted(_REGISTRY)
 
 
-_ARCH_MODULES = ["chatglm3_6b", "gemma_7b", "deepseek_v2_lite",
-                 "mixtral_8x22b"]
+_ARCH_MODULES = ["chatglm3_6b", "h2o_danube3_4b", "mistral_nemo_12b",
+                 "gemma_7b", "deepseek_v2_lite", "mixtral_8x22b",
+                 "st_synthetic"]
 
 _loaded = False
 

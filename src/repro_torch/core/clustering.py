@@ -40,6 +40,8 @@ from typing import (Callable, Dict, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 # Severity categories (paper §4.2.2).
 VERY_LOW, LOW, MEDIUM, HIGH, VERY_HIGH = 0, 1, 2, 3, 4
 SEVERITY_NAMES = ["very low", "low", "medium", "high", "very high"]
@@ -204,19 +206,6 @@ class _KernelDistanceBackend:
 DISTANCE_BACKENDS = ("numpy", "kernel")
 
 DistanceBackendSpec = Union[str, object]
-
-
-def resolve_device(device: Union[None, str, torch.device] = None
-                   ) -> torch.device:
-    """The torch device a device lane runs on: ``None`` means the card
-    (``cuda``), and asking for a card that is absent raises — there is no
-    silent fallback to the CPU; a caller that wants the CPU says so."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the kernel lane runs on the card; pass "
-            "device='cpu' to run its plain version on the host")
-    return dev
 
 
 def get_distance_backend(backend: DistanceBackendSpec = "numpy",

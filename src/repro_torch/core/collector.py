@@ -7,27 +7,103 @@ derives its classic :class:`RegionMetrics` output through the single
 deterministic :meth:`RegionTrace.reduce` path — so an in-process analysis
 and an offline analysis of the saved artifact see bit-identical inputs.
 
-This part of the port holds the synthetic backend only —
+This part of the port holds the synthetic backend —
 :class:`SyntheticWorkload` generates metrics with injected behaviours
 (imbalance, I/O-heavy regions, cache-hostile regions) used to reproduce
 the paper's ST / NPAR1WAY / MPIBZIP2 studies and the fault corpus.  It is
 numpy-only and draws the same random stream as the reference, so a
-scenario collected by either package holds the same samples bit for bit.
-The runtime collector that times real regions on the card
+scenario collected by either package holds the same samples bit for bit —
+and the CPU-clock calibration (:func:`_pick_cpu_clock`) that the serving
+runtime (``repro_torch.serve.runtime``) records in its trace header.  The
+runtime collector that times real regions on the card
 (``TimedRegionRunner``) and the static collectors are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .metrics import (BYTES, COMM_BYTES, COMM_TIME, CPU_TIME, FLOPS,
                       HBM_INTENSITY, HOST_BYTES, RAW_METRICS, VMEM_PRESSURE,
                       WALL_TIME, RegionMetrics)
 from .regions import RegionTree
 from .trace import RegionTrace
+
+
+def _measure_tick(clock: Callable[[], float],
+                  resolution: float) -> Optional[float]:
+    """Effective resolution of a CPU clock.
+
+    Some kernels advance CPU clocks in ~10ms jiffies even though the
+    advertised resolution is nanoseconds; measure the actual tick by
+    spinning until the clock moves (bounded at 50ms of busy work).  Returns
+    None when the clock never advanced — e.g. the spin itself got preempted
+    — so a failed calibration is retried rather than trusted."""
+    t0 = clock()
+    deadline = time.perf_counter() + 0.05
+    while time.perf_counter() < deadline:
+        t1 = clock()
+        if t1 != t0:
+            return max(resolution, t1 - t0)
+    return None
+
+
+def _cpu_clock_tick() -> Optional[float]:
+    """Measured tick of ``time.process_time`` (the classic CPU clock)."""
+    return _measure_tick(time.process_time,
+                         time.get_clock_info("process_time").resolution)
+
+
+def _thread_clock_attributes_torch(clock: Callable[[], float],
+                                   tick: float) -> bool:
+    """Does tensor work accrue on the *calling* thread's CPU clock?
+
+    PyTorch may run an operator on its intra-op worker threads, in which
+    case ``CLOCK_THREAD_CPUTIME_ID`` of the timing thread reads ~0 for a
+    region that genuinely burned CPU — per-thread timing would then report
+    every compute region as idle.  Probe with a CPU matrix product long
+    enough to span several ticks: accept the thread clock only when it
+    observed at least half the wall time."""
+    x = torch.ones((256, 256), dtype=torch.float32)
+    torch.tanh(x @ x).sum()                          # warm up outside
+    budget = max(4.0 * tick, 0.02)
+    t0w, t0c = time.perf_counter(), clock()
+    while time.perf_counter() - t0w < budget:
+        torch.tanh(x @ x).sum()
+    wall, cpu = time.perf_counter() - t0w, clock() - t0c
+    return cpu >= 0.5 * wall
+
+
+def _pick_cpu_clock() -> Tuple[Callable[[], float], Optional[float], str]:
+    """Choose the CPU clock for region timing: ``(clock, tick, name)``.
+
+    Prefers the per-thread CPU clock (``CLOCK_THREAD_CPUTIME_ID``) over
+    ``time.process_time`` — but only when it is measurably *finer* than the
+    process clock's jiffy tick AND tensor work actually accrues on the
+    calling thread (see :func:`_thread_clock_attributes_torch`); otherwise
+    region timing keeps the process clock, whose coarse tick the
+    reduce-time snap (``RegionTrace.reduce``) already compensates for.  A
+    None tick means calibration failed this time and should be retried."""
+    process_tick = _cpu_clock_tick()
+    if hasattr(time, "clock_gettime") and \
+            hasattr(time, "CLOCK_THREAD_CPUTIME_ID"):
+        clk_id = time.CLOCK_THREAD_CPUTIME_ID
+
+        def thread_clock() -> float:
+            return time.clock_gettime(clk_id)
+
+        thread_tick = _measure_tick(thread_clock, time.clock_getres(clk_id))
+        if (thread_tick is not None
+                and (process_tick is None or thread_tick < process_tick)
+                and _thread_clock_attributes_torch(thread_clock,
+                                                   thread_tick)):
+            return thread_clock, thread_tick, "thread"
+    return time.process_time, process_tick, "process"
+
 
 @dataclasses.dataclass
 class RegionBehavior:

@@ -1,7 +1,26 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version.  Kernels are built at first use (``build.py``), never on import."""
-from .distance import (LAUNCHES, multi_seed_rows, multi_seed_rows_ref,
-                       reset_launches)
+version.  Kernels are built at first use (``build.py``), never on import.
 
-__all__ = ["LAUNCHES", "multi_seed_rows", "multi_seed_rows_ref",
-           "reset_launches"]
+``LAUNCHES`` counts the launches of each CUDA kernel, incremented by its
+wrapper where it launches the kernel and nowhere else, so a run can show
+that its main path went through the kernels.
+"""
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"multi_seed_rows": 0, "rmsnorm": 0,
+                            "flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+from .distance import multi_seed_rows, multi_seed_rows_ref  # noqa: E402
+from .flash_attention import (flash_attention,  # noqa: E402
+                              flash_attention_ref)
+from .rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+
+__all__ = ["LAUNCHES", "reset_launches", "multi_seed_rows",
+           "multi_seed_rows_ref", "rmsnorm", "rmsnorm_ref",
+           "flash_attention", "flash_attention_ref"]

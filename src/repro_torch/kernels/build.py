@@ -19,7 +19,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # <checkout>/build/kernels (the package lives at <checkout>/src/repro_torch).
@@ -68,35 +69,44 @@ def _key(source: pathlib.Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _paths(name: str) -> Tuple[pathlib.Path, pathlib.Path, pathlib.Path]:
+    source = CSRC / f"{name}.cu"
+    stem = f"lib{name}-{_key(source)}"
+    return source, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
+
+
 def load_library(name: str) -> KernelLibrary:
     """Compile ``csrc/<name>.cu`` unless a build of the same source and
     flags exists, and load it (once per process)."""
-    if name in _LOADED:
-        return _LOADED[name]
-    source = CSRC / f"{name}.cu"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = f"lib{name}-{_key(source)}"
-    so, log = BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
-    built = False
-    if not so.is_file():
-        so_tmp, log_text = _compile(source, BUILD_DIR)
-        log.write_text(log_text)
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = _LOADED[name] = _build(name)
+    return lib
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, KernelLibrary]:
+    """Load several kernel sources, compiling the missing ones with one
+    nvcc process each, all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load_library, names)))
+
+
+def _build(name: str) -> KernelLibrary:
+    source, so, log = _paths(name)
+    built = not so.is_file()
+    if built:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise KernelBuildError(
+                f"nvcc failed ({res.returncode}) on {source}:\n"
+                f"$ {' '.join(cmd)}\n{res.stdout}")
+        log.write_text(res.stdout)
         # Atomic publish: concurrent first uses never load a torn library.
-        os.replace(so_tmp, so)
-        built = True
-    _LOADED[name] = KernelLibrary(
-        so, log.read_text() if log.is_file() else "", built)
-    return _LOADED[name]
-
-
-def _compile(source: pathlib.Path, out_dir: pathlib.Path) -> Tuple[str, str]:
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}) on {source}:\n"
-            f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    return tmp, proc.stdout + proc.stderr
+        os.replace(tmp, so)
+    return KernelLibrary(so, log.read_text() if log.is_file() else "", built)

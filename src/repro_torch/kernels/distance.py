@@ -21,18 +21,10 @@ row is bitwise the same whether its seed was fetched alone or with others
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
-# Launches of the CUDA kernel, counted where it is launched (and nowhere
-# else): a run can show that its main path went through the kernel.
-LAUNCHES: Dict[str, int] = {"multi_seed_rows": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+from . import LAUNCHES
 
 
 def multi_seed_rows_ref(points: torch.Tensor, sq: torch.Tensor,

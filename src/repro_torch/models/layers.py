@@ -1,0 +1,197 @@
+"""Shared model layers of the dense family, as plain functions on tensors.
+
+The twin of the reference's ``repro.models.layers`` (dense subset).  The
+norm and the attention call the port's kernels
+(:mod:`repro_torch.kernels`): on CUDA tensors those launch the hand-written
+CUDA kernels, on CPU tensors they run their plain PyTorch versions.  The
+reference's ``naive_attention`` and ``chunked_attention`` both become the
+one attention kernel; MLA waits for the MoE/MLA slice.
+
+Parameters are the attributes of the modules in ``transformer.py``, in the
+reference's layouts: ``wq`` (d, H, dh), ``wk``/``wv`` (d, KV, dh), ``wo``
+(H, dh, d), ``wi``/``wg`` (d, ff), MLP ``wo`` (ff, d), the embedding
+(vocab, d).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention, rmsnorm
+
+# Position of a KV-cache slot that was never written: masked by the causal
+# test of every real query.
+UNWRITTEN = 2 ** 30
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """x (..., d): the rows of x through the RMSNorm kernel."""
+    d = x.shape[-1]
+    return rmsnorm(x.reshape(-1, d).contiguous(), w, eps).reshape(x.shape)
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+def rope_angles(positions: torch.Tensor, dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, dim/2)."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_dim(cfg: ModelConfig, dh: int) -> int:
+    """How many of a head's dh dims rotate."""
+    frac = cfg.rope_fraction if cfg.rope_style == "partial" else 1.0
+    rot = int(dh * frac)
+    return rot - rot % 2
+
+
+def apply_rope(x: torch.Tensor, angles: Tuple[torch.Tensor, torch.Tensor],
+               cfg: ModelConfig) -> torch.Tensor:
+    """x: (..., S, H, dh); ``angles`` the cos/sin of
+    ``rope_angles(positions, rope_dim(cfg, dh), cfg.rope_theta)``, which
+    the model computes once per call for all layers.  Styles:
+    'half'        — llama rotate-half over the full head dim;
+    'partial'     — chatglm 2d rope: only rope_fraction of dims, interleaved
+                    pairs, remainder passed through;
+    'interleaved' — gpt-neox interleaved pairs over the full dim.
+    """
+    rot = rope_dim(cfg, x.shape[-1])
+    xr, xp = x[..., :rot], x[..., rot:]
+    cos, sin = angles
+    cos = cos[..., :, None, :]
+    sin = sin[..., :, None, :]
+    if cfg.rope_style == "half":
+        x1, x2 = torch.chunk(xr, 2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    else:  # interleaved pairs (also the chatglm partial style)
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(xr.shape)
+    out = out.to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rot < x.shape[-1] else out
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
+                         dtype: torch.dtype,
+                         device: torch.device) -> Dict[str, object]:
+    """A ring-buffer KV cache: ``min(max_len, window)`` slots with their
+    positions (unwritten slots hold ``UNWRITTEN``), and the host-side count
+    ``idx`` of tokens written so far."""
+    KV, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.window is not None:
+        max_len = min(max_len, cfg.window)
+    return {
+        "k": torch.zeros((batch, max_len, KV, dh), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, max_len, KV, dh), dtype=dtype,
+                         device=device),
+        "pos": torch.full((max_len,), UNWRITTEN, dtype=torch.int32,
+                          device=device),
+        "idx": 0,
+    }
+
+
+def cache_write_slot(idx: int, S: int, max_len: int) -> int:
+    """First slot an S-token write lands in.  The reference writes at
+    ``idx % max_len`` for one token and at ``idx`` for a chunk, through
+    ``lax.dynamic_update_slice_in_dim``, which clamps the start into
+    ``[0, max_len - S]``: a chunk written past the end of a window-sized
+    cache overwrites the last ``S`` slots (layers.py:286-305)."""
+    if S > max_len:
+        raise ValueError(f"a {S}-token write does not fit a {max_len}-slot "
+                         f"cache")
+    write = idx % max_len if S == 1 else idx
+    return min(max(write, 0), max_len - S)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) x (d, heads, dh) -> (B, S, heads, dh), one matrix
+    product (the reference's einsum "bsd,dhk->bshk")."""
+    d, heads, dh = w.shape
+    return (x @ w.reshape(d, heads * dh)).view(*x.shape[:-1], heads, dh)
+
+
+def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor,
+              angles: Tuple[torch.Tensor, torch.Tensor],
+              cache: Optional[Dict[str, object]] = None) -> torch.Tensor:
+    """Attention sub-layer: projections, rope, the attention kernel and,
+    with ``cache``, the ring-buffer KV cache.
+
+    x (B, S, d); positions (S,) int32; ``angles`` as in
+    :func:`apply_rope`.  The cache's buffers and ``idx`` are updated in
+    place (the reference returns a new cache).  Returns (B, S, d).
+    """
+    q = apply_rope(_project(x, p["wq"]), angles, cfg)
+    k = apply_rope(_project(x, p["wk"]), angles, cfg)
+    v = _project(x, p["wv"])
+    k_pos = positions
+    if cache is not None:
+        S = x.shape[1]
+        ck, cv = cache["k"], cache["v"]
+        start = cache_write_slot(cache["idx"], S, ck.shape[1])
+        ck[:, start:start + S] = k.to(ck.dtype)
+        cv[:, start:start + S] = v.to(cv.dtype)
+        cache["pos"][start:start + S] = positions.to(torch.int32)
+        cache["idx"] += S
+        k, v, k_pos = ck, cv, cache["pos"]
+    out = flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        positions.to(torch.int32).contiguous(),
+        k_pos.to(torch.int32).contiguous(),
+        causal=cfg.causal, window=cfg.window,
+        softcap=cfg.attn_logit_softcap)
+    H, dh, d = p["wo"].shape
+    return out.reshape(*out.shape[:2], H * dh) @ p["wo"].reshape(H * dh, d)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation; torch's does not.
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
+        activation: str) -> torch.Tensor:
+    h = _act(x @ p["wg"], activation) * (x @ p["wi"])
+    return h @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# embedding / head
+# --------------------------------------------------------------------------
+def embed(table: torch.Tensor, cfg: ModelConfig,
+          tokens: torch.Tensor) -> torch.Tensor:
+    x = F.embedding(tokens, table)
+    if cfg.scale_embed:
+        # sqrt(d) is rounded to the table's dtype before it multiplies, as
+        # in the reference: 55.43 becomes 55.5 in bfloat16 at d = 3072.
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x.to(cfg.activation_dtype())
+
+
+def logits_from(table: torch.Tensor, head: Optional[torch.Tensor],
+                cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return (x @ table.T).float()
+    return (x @ head).float()

@@ -1,0 +1,242 @@
+"""TorchBackend: the serving engine's real-model execution backend.
+
+The twin of the reference's ``repro.serve.runtime.JitBackend``.  It runs
+the shared :class:`~repro_torch.serve.engine.ServeScheduler` schedule
+through the port's model on its device: per-lane batch-1 decode states
+(the KV cache's ring index is shared across a batch, so lanes at
+different positions cannot share one batched state) and true chunked
+prefill on the families whose attention cache accepts S > 1 writes
+(``supports_chunk``; of those only the dense family is ported).  On the
+card every model call goes through the hand-written RMSNorm and attention
+kernels.
+
+Measurement follows the reference: perf_counter walls around each call,
+ended by ``torch.cuda.synchronize`` on the card (the reference's
+``block_until_ready``), and the calibrated CPU clock of
+``repro_torch.core.collector`` (``cpu_tick``/``cpu_clock``/``derived``
+ride in the header meta so ``RegionTrace.reduce`` replays the
+quantization snap offline).  FLOPs and bytes per call shape come from an
+analytic count of the model (:func:`call_costs`) in place of the
+reference's HLO cost analysis: a FLOP counter cannot see a kernel called
+through ctypes.  :meth:`TorchBackend.warmup` makes one untimed call per
+steady-state shape, ``(1, chunk)`` and ``(1, 1)`` (the train corpus
+``warmup=1`` convention).
+
+``kv_append`` records quantities rather than time: the KV write happens
+inside the model call, so the region carries the appended bytes
+(slots x 2 x n_layers x n_kv_heads x head_dim x dtype) and the lane's
+cache occupancy as VMEM_PRESSURE, with zero wall — the signals the
+reference's KV archetypes condition on.  ``sample`` is a separately timed
+argmax.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import (BYTES, CPU_TIME, FLOPS, RAW_METRICS,
+                              VMEM_PRESSURE, WALL_TIME)
+from repro_torch.core.collector import _pick_cpu_clock
+from repro_torch.core.trace import RegionTrace
+from repro_torch.models import ModelApi
+from repro_torch.scenarios.traffic import prompt_tokens
+
+from .engine import DECODE, KV_APPEND, PREFILL, SAMPLE, LaneEvent, \
+    serve_region_tree
+
+CHUNK_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
+def supports_chunk(cfg) -> bool:
+    """True when the family's attention cache accepts multi-token
+    (S > 1) writes, i.e. true chunked prefill works."""
+    return cfg.family in CHUNK_FAMILIES
+
+
+def call_costs(cfg, tokens: int, cache_slots: int) -> Tuple[float, float]:
+    """Analytic (flops, bytes) of one batch-1 model call on ``tokens``
+    tokens against a ``cache_slots``-slot KV cache (dense family).
+
+    With S = tokens, K = cache_slots, L layers, width d, H query and KV key
+    heads of size dh, MLP width ff, vocabulary V, parameter itemsize w and
+    activation itemsize a:
+
+        flops = 2·S·L·(d·H·dh + 2·d·KV·dh + H·dh·d + 3·d·ff)   projections, MLP
+              + 4·S·K·H·dh·L                                     scores and P·V
+              + 2·S·d·V                                          logits
+        bytes = w·param_count                  every weight read once
+              + 2·L·K·KV·dh·a                  the KV cache read
+              + 2·L·S·KV·dh·a                  the new KV slots written
+              + 4·S·V                          float32 logits written
+
+    The attention term counts every cache slot, masked or not, because the
+    kernel scores them all.  Norms, rope and elementwise work are left
+    out.  These are not expected to equal the reference's numbers, which
+    come from XLA's cost analysis of the compiled program.
+    """
+    S, K, L = tokens, cache_slots, cfg.n_layers
+    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh, ff, V = cfg.resolved_head_dim, cfg.d_ff, cfg.vocab
+    w = torch.empty((), dtype=cfg.parameter_dtype()).element_size()
+    a = torch.empty((), dtype=cfg.activation_dtype()).element_size()
+    flops = (2 * S * L * (d * H * dh + 2 * d * KV * dh + H * dh * d
+                          + 3 * d * ff)
+             + 4 * S * K * H * dh * L + 2 * S * d * V)
+    nbytes = (w * cfg.param_count() + 2 * L * K * KV * dh * a
+              + 2 * L * S * KV * dh * a + 4 * S * V)
+    return float(flops), float(nbytes)
+
+
+def sample_costs(cfg) -> Tuple[float, float]:
+    """Analytic (flops, bytes) of the argmax over one row of float32
+    logits: V comparisons, 4·V bytes read and the token written."""
+    return float(cfg.vocab), float(4 * cfg.vocab + 4)
+
+
+class TorchBackend:
+    """Execute lane events against the port's model, measured."""
+
+    _cpu_clock: Optional[Tuple[Callable[[], float], Optional[float], str]] \
+        = None
+
+    def __init__(self, cfg, api: ModelApi, model: torch.nn.Module,
+                 lanes: int, max_len: int, prefill_chunk: int,
+                 seed: int = 0):
+        if prefill_chunk > 1 and not supports_chunk(cfg):
+            raise ValueError(
+                f"family {cfg.family!r} has a per-token decode cache; "
+                f"use prefill_chunk=1")
+        self.cfg = cfg
+        self.api = api
+        self.model = model
+        self.device = api.device
+        self.lanes = lanes
+        self.max_len = max_len
+        self.prefill_chunk = prefill_chunk
+        self.seed = seed
+        self.tree = serve_region_tree()
+        self.region_ids = [r.region_id for r in self.tree.regions()]
+        root = self.tree.root.name
+        self._rid = {p: self.tree.by_path(f"{root}/{p}").region_id
+                     for p in (PREFILL, DECODE, KV_APPEND, SAMPLE)}
+        # Per-lane decode state.
+        self._state: List[Any] = [None] * lanes
+        self._pending_logits: List[Optional[torch.Tensor]] = [None] * lanes
+        self._prompt: List[Optional[np.ndarray]] = [None] * lanes
+        self.outputs: Dict[int, List[int]] = {}
+        self.model_calls = 0       # decode_step calls, warmup included
+        # A window caps the cache's slots (layers.init_attention_cache).
+        self.cache_slots = max_len if cfg.window is None \
+            else min(max_len, cfg.window)
+        self.kv_bytes_per_token = (
+            2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim
+            * torch.empty((), dtype=cfg.activation_dtype()).element_size())
+        if TorchBackend._cpu_clock is None:
+            TorchBackend._cpu_clock = _pick_cpu_clock()
+        self._clock, self._tick, self._clock_name = TorchBackend._cpu_clock
+
+    # -- model calls -------------------------------------------------------
+    def _decode(self, state, tokens: torch.Tensor, pos):
+        self.model_calls += 1
+        return self.api.decode_step(self.model, state, tokens, pos)
+
+    @staticmethod
+    def _sample(logits: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+
+    def _positions(self, start: int, k: int):
+        if k == 1:
+            return start
+        return torch.arange(start, start + k, dtype=torch.int32,
+                            device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self) -> None:
+        """One untimed call per steady-state shape, on a throwaway state,
+        and one sample — excluded from every reported timing."""
+        shapes = {1}
+        if self.prefill_chunk > 1:
+            shapes.add(self.prefill_chunk)
+        logits = None
+        for k in sorted(shapes):
+            state = self.api.init_decode_state(1, self.max_len)
+            toks = torch.zeros((1, k), dtype=torch.int32, device=self.device)
+            logits, _ = self._decode(state, toks, self._positions(0, k))
+        self._sample(logits)
+        self._sync()
+
+    # -- execution ---------------------------------------------------------
+    def _timed(self, fn, *args):
+        t0w = time.perf_counter()
+        t0c = self._clock()
+        out = fn(*args)
+        self._sync()
+        return out, time.perf_counter() - t0w, self._clock() - t0c
+
+    def execute(self, s: int, events: Sequence[LaneEvent]) -> RegionTrace:
+        tr = RegionTrace.for_tree(
+            self.tree, self.region_ids, self.lanes, n_steps=1,
+            metrics=RAW_METRICS,
+            meta={"collector": "serve", "cpu_tick": self._tick,
+                  "cpu_clock": self._clock_name, "derived": True})
+        for ev in events:
+            if ev.request is None:
+                continue
+            lane, req = ev.lane, ev.request
+            if ev.new_request:
+                self._state[lane] = self.api.init_decode_state(1,
+                                                               self.max_len)
+                self._pending_logits[lane] = None
+                self._prompt[lane] = prompt_tokens(req, self.cfg.vocab,
+                                                   self.seed)
+                self.outputs.setdefault(req.rid, [])
+            if ev.prefill_tokens:
+                a, k = ev.prefill_start, ev.prefill_tokens
+                toks = torch.as_tensor(self._prompt[lane][:, a:a + k],
+                                       device=self.device)
+                fl, by = call_costs(self.cfg, k, self.cache_slots)
+                (logits, _), dw, dc = self._timed(
+                    self._decode, self._state[lane], toks,
+                    self._positions(a, k))
+                if a + k == req.prompt_len:
+                    self._pending_logits[lane] = logits
+                self._write(tr, PREFILL, lane, dw, dc, fl, by)
+            if ev.decode_tokens:
+                # Sample the pending logits (its own timed region), then
+                # feed the sampled token to produce the next logits.
+                tok, dw, dc = self._timed(self._sample,
+                                          self._pending_logits[lane])
+                self._write(tr, SAMPLE, lane, dw, dc, *sample_costs(self.cfg))
+                self.outputs[req.rid].append(int(tok[0, 0]))
+                fl, by = call_costs(self.cfg, 1, self.cache_slots)
+                (logits, _), dw, dc = self._timed(
+                    self._decode, self._state[lane], tok, ev.decode_pos)
+                self._pending_logits[lane] = logits
+                self._write(tr, DECODE, lane, dw, dc, fl, by)
+            if ev.kv_tokens:
+                # The KV write happens inside the model call, so this
+                # region carries quantities, not time: appended bytes and
+                # cache occupancy.
+                j = tr.col(self._rid[KV_APPEND])
+                tr.metric(BYTES)[0, 0, lane, j] = \
+                    ev.kv_tokens * self.kv_bytes_per_token
+                tr.metric(VMEM_PRESSURE)[0, 0, lane, j] = ev.occupancy
+            if ev.finished:
+                self._state[lane] = None
+                self._pending_logits[lane] = None
+                self._prompt[lane] = None
+        return tr
+
+    def _write(self, tr: RegionTrace, phase: str, lane: int,
+               wall: float, cpu: float, fl: float, by: float) -> None:
+        j = tr.col(self._rid[phase])
+        tr.metric(WALL_TIME)[0, 0, lane, j] += wall
+        tr.metric(CPU_TIME)[0, 0, lane, j] += cpu
+        tr.metric(FLOPS)[0, 0, lane, j] += fl
+        tr.metric(BYTES)[0, 0, lane, j] += by

@@ -16,20 +16,36 @@ from repro_torch.scenarios import faults as port_faults
 
 TREE_ARCHS = ["mixtral-8x22b", "deepseek-v2-lite-16b", "gemma-7b",
               "chatglm3-6b"]
+# Dense architectures the models and the serving launcher reach.
+MODEL_ARCHS = ["st-100m", "mistral-nemo-12b", "h2o-danube-3-4b"]
 
 
-@pytest.mark.parametrize("arch", TREE_ARCHS)
+@pytest.mark.parametrize("arch", TREE_ARCHS + MODEL_ARCHS)
 def test_configs_equal_reference(arch):
     ref, port = ref_configs.get_arch(arch), port_configs.get_arch(arch)
     assert dataclasses.asdict(port.smoke) == dataclasses.asdict(ref.smoke)
     assert dataclasses.asdict(port.full) == dataclasses.asdict(ref.full)
+    for a, b in ((port.smoke, ref.smoke), (port.full, ref.full)):
+        assert a.param_count() == b.param_count()
+        assert a.active_param_count() == b.active_param_count()
+        assert (a.resolved_head_dim, a.attn_dim) == \
+            (b.resolved_head_dim, b.attn_dim)
+        assert str(a.activation_dtype()) == f"torch.{b.activation_dtype()}"
+        assert str(a.parameter_dtype()) == f"torch.{b.parameter_dtype()}"
 
 
 def test_same_arch_registry():
     """The port carries the architectures its region trees are built from
-    (the others come with the models)."""
-    assert port_configs.list_archs() == sorted(TREE_ARCHS)
+    and those its models reach (the others come with their families)."""
+    assert port_configs.list_archs() == sorted(TREE_ARCHS + MODEL_ARCHS)
     assert set(port_configs.list_archs()) <= set(ref_configs.list_archs())
+
+
+def test_gemma_7b_full_size():
+    """The served model: 8.54e9 parameters, 17.1 GB in bf16."""
+    cfg = port_configs.get_arch("gemma-7b").full
+    assert cfg.param_count() == 8537680896
+    assert cfg.resolved_head_dim == 256 and cfg.attn_dim == 4096
 
 
 @pytest.mark.parametrize("arch", TREE_ARCHS)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.kernels import distance as ref_dist
+from repro_torch import kernels as K
 from repro_torch.kernels import distance as D
 
 SHAPES = [(16, 1, 1), (40, 6, 5), (130, 17, 9), (513, 3, 12), (64, 130, 7),
@@ -91,10 +92,10 @@ def test_batched_equals_per_seed_bitwise(m, n, k):
 
 
 def test_cpu_path_launches_nothing():
-    D.reset_launches()
+    K.reset_launches()
     W, sq, idx = _inputs(40, 6, 5)
     D.multi_seed_rows(*map(torch.from_numpy, (W, sq, idx)))
-    assert D.LAUNCHES["multi_seed_rows"] == 0
+    assert K.LAUNCHES["multi_seed_rows"] == 0
 
 
 def test_empty_shapes():
@@ -147,11 +148,11 @@ def test_kernel_matches_plain_on_card(cuda, m, n, k):
     for centred in (False, True):
         W, sq, idx = _inputs(m, n, k, centred=centred)
         pts, sqt, ii = (torch.from_numpy(a).to(cuda) for a in (W, sq, idx))
-        D.reset_launches()
+        K.reset_launches()
         got = D.multi_seed_rows(pts, sqt, ii)
         plain = D.multi_seed_rows_ref(pts, sqt, ii)
         torch.cuda.synchronize()
-        assert D.LAUNCHES["multi_seed_rows"] == 1
+        assert K.LAUNCHES["multi_seed_rows"] == 1
         got = got.cpu().numpy()
         _assert_rows(got, plain.cpu().numpy(), W, sq, idx, C_PLAIN)
         _assert_rows(got, _f64_rows(W, idx), W, sq, idx, C_F64)

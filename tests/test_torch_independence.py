@@ -35,8 +35,9 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, env=env,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    # core (12), kernels (3), configs (6), scenarios (6), cli (3), ...
-    assert int(out.stdout.strip().splitlines()[-1]) >= 29
+    # core (12), kernels (5), configs (9), scenarios (7), cli (3),
+    # models (4), serve (3), launch (2), device (1), the package itself ...
+    assert int(out.stdout.strip().splitlines()[-1]) >= 45
 
 
 def test_no_source_mentions_jax_imports():

@@ -1,0 +1,312 @@
+"""The port's RMSNorm and attention kernel modules against the reference.
+
+On the CPU each wrapper runs its plain PyTorch version; it is held against
+the reference's oracles (``repro.kernels.ref``), its Pallas kernels in
+interpret mode (as tests/test_kernels.py runs them) and its model-layer
+attention (``repro.models.layers.naive_attention``) on inputs made with
+numpy from a seed.  Tolerances: float32 at the reference kernel tests'
+atol = rtol = 2e-5; bfloat16 at their 3e-2 (the port keeps the softmax
+probabilities in float32 where naive_attention rounds them to v's dtype
+before P·V).  Tests marked ``gpu`` hold the CUDA kernels to the plain
+versions on the card and skip here.
+"""
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as ref_kernels
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro.models import layers as ref_layers
+from repro_torch import kernels as K
+
+F32_TOL, BF16_TOL = 2e-5, 3e-2
+UNWRITTEN = 2 ** 30
+
+
+def _rng(name):
+    return np.random.default_rng(zlib.crc32(name.encode()))
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# -- RMSNorm -----------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d", [(1, 64), (7, 96), (256, 128), (300, 48)])
+def test_rmsnorm_matches_reference_oracle(n, d):
+    rng = np.random.default_rng(n * 1000 + d)
+    x = 2.0 * _normal(rng, (n, d)) + 0.5
+    w = 0.1 * _normal(rng, (d,))
+    want = np.asarray(ref_kernels.rmsnorm_ref(x, w, eps=1e-6))
+    got = K.rmsnorm(torch.from_numpy(x), torch.from_numpy(w), 1e-6)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("n,d,row_block", [(8, 64, 8), (64, 128, 16)])
+def test_rmsnorm_matches_pallas_interpret(n, d, row_block):
+    rng = np.random.default_rng(n + d)
+    x, w = _normal(rng, (n, d)), 0.1 * _normal(rng, (d,))
+    want = np.asarray(pallas_rmsnorm(x, w, eps=1e-5, row_block=row_block,
+                                     interpret=True))
+    got = K.rmsnorm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_rmsnorm_bfloat16_matches_reference():
+    rng = np.random.default_rng(3)
+    x = _normal(rng, (5, 3072))
+    w = 0.1 * _normal(rng, (3072,))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    want = ref_kernels.rmsnorm_ref(jnp.asarray(x, jnp.bfloat16),
+                                   jnp.asarray(w, jnp.bfloat16))
+    got = K.rmsnorm(xb, wb, 1e-6)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def test_model_rms_norm_matches_reference_layer():
+    """The model layer flattens leading dims into the kernel's rows."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(5)
+    x, w = _normal(rng, (2, 7, 32)), 0.1 * _normal(rng, (32,))
+    want = np.asarray(ref_layers.rms_norm(x, w, 1e-6))
+    got = layers.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "w_dtype", "rank", "w_shape",
+                                 "strided"])
+def test_rmsnorm_refuses_what_it_does_not_take(bad):
+    x, w = torch.ones(4, 8), torch.zeros(8)
+    if bad == "dtype":
+        x, w = x.half(), w.half()
+    elif bad == "w_dtype":
+        w = w.to(torch.bfloat16)
+    elif bad == "rank":
+        x = x[None]
+    elif bad == "w_shape":
+        w = torch.zeros(9)
+    else:
+        x = torch.ones(8, 4).T
+    with pytest.raises((TypeError, ValueError)):
+        K.rmsnorm(x, w, 1e-6)
+
+
+# -- attention ---------------------------------------------------------------
+
+def _implicit(Q, K_):
+    """The Pallas kernel's implicit positions: queries are the last Q."""
+    return (torch.arange(K_ - Q, K_, dtype=torch.int32),
+            torch.arange(K_, dtype=torch.int32))
+
+
+def _mha_to_model(a):
+    """(B, H, S, dh) numpy -> (B, S, H, dh) contiguous tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2)))
+
+
+@pytest.mark.parametrize("B,H,Q,K_,dh,causal,window", [
+    (1, 1, 128, 128, 64, True, None),
+    (2, 2, 64, 256, 32, True, None),
+    (1, 2, 256, 256, 16, True, 64),
+    (1, 2, 96, 200, 24, True, 50),
+    (2, 2, 128, 128, 64, False, None),
+])
+def test_attention_matches_reference_oracle(B, H, Q, K_, dh, causal, window):
+    rng = np.random.default_rng(B + H + Q + K_ + dh)
+    q, k, v = (_normal(rng, (B, H, s, dh)) for s in (Q, K_, K_))
+    want = np.asarray(ref_kernels.flash_attention_ref(
+        q, k, v, causal=causal, window=window))
+    qp, kp = _implicit(Q, K_)
+    got = K.flash_attention(_mha_to_model(q), _mha_to_model(k),
+                            _mha_to_model(v), qp, kp, causal=causal,
+                            window=window)
+    np.testing.assert_allclose(got.numpy(), np.swapaxes(want, 1, 2),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None)])
+def test_attention_matches_pallas_interpret(causal, window):
+    rng = np.random.default_rng(11)
+    q, k, v = (_normal(rng, (1, 2, 128, 32)) for _ in range(3))
+    want = np.asarray(pallas_flash(q, k, v, causal=causal, window=window,
+                                   q_block=64, k_block=64, interpret=True))
+    qp, kp = _implicit(128, 128)
+    got = K.flash_attention(_mha_to_model(q), _mha_to_model(k),
+                            _mha_to_model(v), qp, kp, causal=causal,
+                            window=window)
+    np.testing.assert_allclose(got.numpy(), np.swapaxes(want, 1, 2),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+def _ring_positions(rng, slots, written, last):
+    """Ring-buffer slot positions: ``written`` slots hold positions
+    ending at ``last`` in wrapped order, the rest are unwritten."""
+    pos = np.full(slots, UNWRITTEN, np.int32)
+    held = np.arange(last - written + 1, last + 1)
+    pos[held % slots] = held
+    return pos
+
+
+ATTN_LAYER_CASES = {
+    # name: (B, Q, H, KV, dh, K, causal, window, softcap, q_pos, k_pos)
+    "gqa-by-index": (2, 6, 4, 2, 16, 6, True, None, None,
+                     np.arange(6), np.arange(6)),
+    "ring-buffer": (1, 1, 4, 1, 16, 16, True, None, None,
+                    np.array([40]), "ring"),
+    "ring-window": (1, 3, 4, 2, 8, 16, True, 10, None,
+                    np.array([38, 39, 40]), "ring"),
+    "softcap": (1, 5, 2, 2, 16, 9, True, None, 2.0,
+                np.arange(4, 9), np.arange(9)),
+    "non-causal": (1, 4, 2, 1, 8, 7, False, None, None,
+                   np.arange(4), np.arange(7)),
+    "fully-masked-row": (1, 3, 2, 2, 8, 5, True, None, None,
+                         np.array([0, 1, 2]), np.arange(3, 8)),
+    "unwritten-slots": (1, 2, 4, 4, 16, 12, True, None, None,
+                        np.array([4, 5]), np.r_[np.arange(6),
+                                                np.full(6, UNWRITTEN)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ATTN_LAYER_CASES))
+def test_attention_matches_naive_attention(name):
+    (B, Q, H, KV, dh, K_, causal, window, softcap, q_pos,
+     k_pos) = ATTN_LAYER_CASES[name]
+    rng = _rng(name)
+    if isinstance(k_pos, str):
+        k_pos = _ring_positions(rng, K_, 13, int(q_pos[-1]))
+    q = _normal(rng, (B, Q, H, dh))
+    k, v = (_normal(rng, (B, K_, KV, dh)) for _ in range(2))
+    q_pos, k_pos = q_pos.astype(np.int32), k_pos.astype(np.int32)
+    want = np.asarray(ref_layers.naive_attention(
+        q, k, v, causal=causal, window=window, q_positions=q_pos,
+        k_positions=k_pos, softcap=softcap))
+    got = K.flash_attention(*map(torch.from_numpy, (q, k, v, q_pos, k_pos)),
+                            causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    if name == "fully-masked-row":
+        # Every score is -1e30: the row averages v uniformly.
+        np.testing.assert_allclose(got.numpy()[0, 0], v[0].mean(axis=0),
+                                   atol=F32_TOL)
+
+
+def test_attention_bfloat16_within_probability_rounding():
+    """bf16 in and out; naive_attention rounds P to bf16 before P·V, the
+    port keeps it in float32: equal within the bf16 tolerance."""
+    rng = np.random.default_rng(21)
+    q = _normal(rng, (1, 8, 4, 32))
+    k, v = (_normal(rng, (1, 24, 2, 32)) for _ in range(2))
+    q_pos = np.arange(16, 24, dtype=np.int32)
+    k_pos = np.arange(24, dtype=np.int32)
+    want = ref_layers.naive_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=True,
+        window=None, q_positions=q_pos, k_positions=k_pos)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = K.flash_attention(*bf, torch.from_numpy(q_pos),
+                            torch.from_numpy(k_pos))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def _attn_args():
+    q = torch.zeros(1, 2, 4, 16)
+    k = torch.zeros(1, 3, 2, 16)
+    return [q, k, k.clone(), torch.arange(2, dtype=torch.int32),
+            torch.arange(3, dtype=torch.int32)]
+
+
+@pytest.mark.parametrize("bad", ["half", "mixed", "int64_pos", "groups",
+                                 "head_dim", "pos_len", "strided",
+                                 "window"])
+def test_attention_refuses_what_it_does_not_take(bad):
+    a, kw = _attn_args(), {}
+    if bad == "half":
+        a[:3] = [t.half() for t in a[:3]]
+    elif bad == "mixed":
+        a[1] = a[1].to(torch.bfloat16)
+    elif bad == "int64_pos":
+        a[3] = a[3].long()
+    elif bad == "groups":
+        a[1] = a[2] = torch.zeros(1, 3, 3, 16)
+    elif bad == "head_dim":
+        a[0] = torch.zeros(1, 2, 4, 272)
+        a[1] = a[2] = torch.zeros(1, 3, 2, 272)
+    elif bad == "pos_len":
+        a[4] = torch.arange(4, dtype=torch.int32)
+    elif bad == "strided":
+        a[0] = torch.zeros(1, 4, 2, 16).transpose(1, 2)
+    else:
+        kw["window"] = 0
+    with pytest.raises((TypeError, ValueError)):
+        K.flash_attention(*a, **kw)
+
+
+def test_cpu_path_launches_nothing():
+    K.reset_launches()
+    K.flash_attention(*_attn_args())
+    K.rmsnorm(torch.ones(3, 8), torch.zeros(8), 1e-6)
+    assert K.LAUNCHES == {"multi_seed_rows": 0, "rmsnorm": 0,
+                          "flash_attention": 0}
+
+
+# -- on the card ---------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(1, 3072), (7, 96), (300, 3840)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, n, d, dtype):
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(2.0 * _normal(rng, (n, d))).to(cuda, dtype)
+    w = torch.from_numpy(0.1 * _normal(rng, (d,))).to(cuda, dtype)
+    K.reset_launches()
+    got = K.rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rmsnorm"] == 1
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    want = K.rmsnorm_ref(x.float(), w.float(), 1e-6)
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ATTN_LAYER_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain_on_card(cuda, name, dtype):
+    (B, Q, H, KV, dh, K_, causal, window, softcap, q_pos,
+     k_pos) = ATTN_LAYER_CASES[name]
+    rng = _rng(name)
+    if isinstance(k_pos, str):
+        k_pos = _ring_positions(rng, K_, 13, int(q_pos[-1]))
+    q = torch.from_numpy(_normal(rng, (B, Q, H, dh))).to(cuda, dtype)
+    k, v = (torch.from_numpy(_normal(rng, (B, K_, KV, dh))).to(cuda, dtype)
+            for _ in range(2))
+    qp, kp = (torch.from_numpy(p.astype(np.int32)).to(cuda)
+              for p in (q_pos, k_pos))
+    K.reset_launches()
+    got = K.flash_attention(q, k, v, qp, kp, causal=causal, window=window,
+                            softcap=softcap)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    want = K.flash_attention_ref(q.float(), k.float(), v.float(), qp, kp,
+                                 causal=causal, window=window,
+                                 softcap=softcap)
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
