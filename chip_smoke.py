@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card: present (there is no CPU path), its name and power limit
    from nvidia-smi, TF32 off for matmuls and cuDNN;
-2. build: compile the three ``src/repro_torch/csrc/*.cu`` sources with
+2. build: compile the four ``src/repro_torch/csrc/*.cu`` sources with
    nvcc for sm_90a, one process each, started together, and print
    ptxas' registers / shared memory;
 3. kernel vs plain: the seed-row kernel against its plain PyTorch version
@@ -39,9 +39,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (4 lanes, 8 requests of 512 prompt tokens in 256-token chunks and 32
    generated tokens), every model call launching 57 RMSNorms and 28
    attentions; one lane's decode call profiled; the served trace
-   analyzed on the kernel and numpy lanes with equal verdicts.
+   analyzed on the kernel and numpy lanes with equal verdicts;
+9. WKV-6 kernel vs plain: rwkv6-3b's decode shape (B=1, T=1, H=40,
+   dh=64) from a non-zero state, T = 64, T = 512 (the reference's
+   chunked threshold, where the output is rounded to r's dtype) and a
+   ragged (2, 100, 4, 16); decays of the model's form and long-memory
+   ones; float32 and bf16 r/k/v; output and final state within 2e-5 of
+   their scale; CUDA-event and profiler times beside the plain version
+   and the bound (no single PyTorch call computes WKV-6);
+10. rwkv parity: rwkv6-3b's full width cut to 2 layers, float32, card vs
+   host; a 64-token call then 4 greedy per-token steps carrying the
+   state; logits within 1e-4 of their scale, greedy tokens equal;
+11. serving: rwkv6-3b FULL in bf16 through ``repro_torch.launch.serve``
+   (4 lanes, 8 requests of 64 prompt tokens, 16 generated, one token per
+   call), every model call launching 65 RMSNorms and 32 WKV-6s; one
+   lane's decode call profiled; the served trace analyzed on both lanes
+   with equal verdicts.
 
-Phases 4, 5 and 8 count the kernels' launches from 0 and fail if the
+Phases 4, 5, 8 and 11 count the kernels' launches from 0 and fail if the
 main path never launched them.  The last two lines of standard output
 are a ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device":
 {...}}``.
@@ -77,9 +92,10 @@ RAGGED = (1000, 37, 3)
 MAIN_PATH_SHAPE = (FLEET_M, FLEET_N, 1)
 TPU_KERNEL = "src/repro/kernels/distance.py:56"
 KERNEL_SOURCE = "src/repro_torch/csrc/distance.cu"
-KERNEL_SOURCES = ("distance", "rmsnorm", "flash_attention")
+KERNEL_SOURCES = ("distance", "rmsnorm", "flash_attention", "wkv6")
 TPU_KERNELS = {"rmsnorm": "src/repro/kernels/rmsnorm.py:23",
-               "flash_attention": "src/repro/kernels/flash_attention.py:84"}
+               "flash_attention": "src/repro/kernels/flash_attention.py:84",
+               "wkv6": "src/repro/kernels/rwkv6_scan.py:69"}
 
 
 def log(msg: str) -> None:
@@ -609,11 +625,30 @@ def time_attention(name: str) -> dict:
 PARITY_RTOL = 1e-4
 
 
-def parity_config():
-    """gemma-7b at full width, cut to 2 layers, in float32."""
+def parity_config(arch: str = "gemma-7b"):
+    """``arch`` at full width, cut to 2 layers, in float32."""
     from repro_torch.configs import get_arch
-    return get_arch("gemma-7b").full.with_(
+    return get_arch(arch).full.with_(
         n_layers=2, dtype="float32", param_dtype="float32")
+
+
+def launches_per_call(cfg) -> dict:
+    """The kernel launches of one model call of ``cfg`` on the card: two
+    RMSNorms a block and the final one, and one attention (dense) or WKV-6
+    (ssm) a block; no other kernel."""
+    mixer = "wkv6" if cfg.family == "ssm" else "flash_attention"
+    return {"rmsnorm": 2 * cfg.n_layers + 1, mixer: cfg.n_layers}
+
+
+def _check_launches(launches: dict, cfg, calls: int, what: str) -> None:
+    """Every kernel launched exactly ``calls`` times its per-call count,
+    the others not at all."""
+    from repro_torch import kernels as K
+    want = {name: 0 for name in K.LAUNCHES}
+    want.update({k: n * calls for k, n in launches_per_call(cfg).items()})
+    if launches != want or calls == 0:
+        raise AssertionError(f"{what} launched {launches}, want {want} for "
+                             f"{calls} model calls")
 
 
 def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
@@ -622,7 +657,7 @@ def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
     prefill then ``steps`` greedy decode steps on each, each side feeding
     its own greedy tokens.  Logits must agree within PARITY_RTOL of their
     scale and the greedy tokens must be equal; on the card every model
-    call must launch 2L+1 RMSNorms and L attentions."""
+    call must launch 2L+1 RMSNorms and L attentions or WKV-6s."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -664,11 +699,8 @@ def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
         raise AssertionError(f"greedy tokens differ: card {card_tokens}, "
                              f"host {host_tokens}")
     calls = steps + 1
-    if torch.device(device).type == "cuda" and (
-            launches["rmsnorm"] != (2 * cfg.n_layers + 1) * calls
-            or launches["flash_attention"] != cfg.n_layers * calls):
-        raise AssertionError(f"model parity run launched {launches} for "
-                             f"{calls} model calls")
+    if torch.device(device).type == "cuda":
+        _check_launches(launches, cfg, calls, "model parity run")
     return {"max_abs_err": err, "logit_scale": scale, "tokens": card_tokens,
             "launches": launches, "calls": calls}
 
@@ -683,7 +715,8 @@ SERVE_ARGV = ("--arch", "gemma-7b", "--lanes", "4", "--requests", "8",
 def serve_phase(argv, device) -> dict:
     """Serve the traffic through ``repro_torch.launch.serve`` with launch
     counts from 0; every model call must have launched 2L+1 RMSNorms and L
-    attentions, every request must complete with its tokens in the
+    attentions or WKV-6s (``launches_per_call``), the peak device memory
+    must fit the card, every request must complete with its tokens in the
     vocabulary, and the saved serving trace, analyzed on the kernel lane
     and on the numpy lane, must give equal verdict docs."""
     import numpy as np
@@ -703,15 +736,17 @@ def serve_phase(argv, device) -> dict:
         t0 = time.perf_counter()
         engine, backend = serve.run(args)
         wall = time.perf_counter() - t0
-        launches = {k: K.LAUNCHES[k] for k in ("rmsnorm", "flash_attention")}
+        launches = dict(K.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() if on_card else None
         trace = RegionTrace.load(path)
     cfg, calls = backend.cfg, backend.model_calls
-    want = {"rmsnorm": (2 * cfg.n_layers + 1) * calls,
-            "flash_attention": cfg.n_layers * calls}
-    if on_card and (launches != want or calls == 0):
-        raise AssertionError(f"serving launched {launches}, want {want} for "
-                             f"{calls} model calls")
+    if on_card:
+        _check_launches(launches, cfg, calls, "serving")
+        total = torch.cuda.get_device_properties(0).total_memory
+        if peak > total:
+            raise AssertionError(f"peak device memory {peak} above the "
+                                 f"card's {total} bytes")
+    launches = {k: launches[k] for k in launches_per_call(cfg)}
     if engine.completed != args.requests or sorted(backend.outputs) != \
             list(range(args.requests)):
         raise AssertionError(f"served {engine.completed} of {args.requests}")
@@ -745,15 +780,23 @@ def serve_phase(argv, device) -> dict:
                             len(trace.region_ids)]}
 
 
-def decode_breakdown(backend, steps: int = 8) -> dict:
+DECODE_PROFILE_STEPS = 8
+
+
+def decode_breakdown(backend,
+                     steps: int = DECODE_PROFILE_STEPS) -> dict:
     """Where one lane's decode call spends the card's time: a fresh lane
-    state, one prefill chunk, then ``steps`` greedy decode calls under
-    torch.profiler (CUDA activity only).  Returns the host wall per call,
-    the device's busy time per call (the sum of its kernels' and copies'
-    times), the idle share 1 - busy / wall, the device operations per call
-    and the kernels that took longest."""
+    state, one prefill chunk, one decode call while torch.profiler (CUDA
+    activity only) warms up and drops its records, then ``steps`` greedy
+    decode calls recorded.  Returns the host wall per call, the device's
+    busy time per call (the sum of its kernels' and copies' times), the
+    idle share 1 - busy / wall, the device operations per call and the
+    kernels that took longest.  The busy time is only as complete as the
+    profiler's event list, so each ported kernel's profiled launches are
+    held to the launch counter over the same calls (``profile_complete``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch import kernels as K
     api, model, k = backend.api, backend.model, backend.prefill_chunk
     state = api.init_decode_state(1, backend.max_len)
     logits, _ = api.decode_step(
@@ -762,24 +805,195 @@ def decode_breakdown(backend, steps: int = 8) -> dict:
         torch.arange(k, dtype=torch.int32, device=backend.device))
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        logits, _ = api.decode_step(model, state, tok, k)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up call's records are dropped
+        before = dict(K.LAUNCHES)
         t0 = time.perf_counter()
-        for i in range(steps):
+        for i in range(1, steps + 1):
             logits, _ = api.decode_step(model, state, tok, k + i)
             tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launched = {n: K.LAUNCHES[n] - before[n] for n in before}
+        prof.step()  # ends the recorded step
     # Only rows with device time: the CUDA activity also records runtime
     # calls (cudaLaunchKernel, ...), which take none.
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages() if e.device_time_total > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    profiled = profile_complete(rows, launched)
     return {"wall_ms": wall / steps * 1e3, "busy_ms": busy / steps * 1e3,
             "idle_share": 1.0 - busy / wall,
             "launches": sum(r[1] for r in rows) / steps,
+            "profiled_launches": profiled,
+            "counted_launches": {n: c for n, c in launched.items() if c},
             "top": [(t / steps / 1e3, c // steps, key[:90])
                     for t, c, key in rows[:10]]}
+
+
+def profile_complete(rows, launched: dict) -> dict:
+    """The launches of each ported kernel in the profiler's ``rows``
+    ((device time, count, key), keys holding the CUDA symbol
+    ``<name>_kernel``), held to ``launched``, the launch counter's delta
+    over the same calls.  Raises when the profiler lists another number
+    for any kernel, since a busy time and idle share summed from a list
+    that lost events would be wrong."""
+    profiled = {n: sum(c for _, c, key in rows if f"{n}_kernel" in key)
+                for n in launched}
+    if profiled != launched:
+        raise AssertionError(
+            f"the profiler lists {profiled} launches of the ported kernels "
+            f"where the launch counter reads {launched} over the same "
+            f"calls: its event list is incomplete")
+    return {n: c for n, c in profiled.items() if c}
+
+
+def log_breakdown(phase: str, bd: dict) -> None:
+    log(f"[{phase}] one lane's decode call (torch.profiler, CUDA only): "
+        f"host wall {bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} "
+        f"ms, idle share {bd['idle_share']:.4f}, {bd['launches']:.1f} "
+        f"device operations per call; kernels by device time (ms per call, "
+        f"launches per call):")
+    for t, c, key in bd["top"]:
+        log(f"    {t:10.5f} {c:6d}  {key}")
+    log(f"[{phase}] ported kernels' launches over the "
+        f"{DECODE_PROFILE_STEPS} profiled calls: profiler "
+        f"{bd['profiled_launches']}, launch counter "
+        f"{bd['counted_launches']} (held equal)")
+
+
+# -- phase 9 ---------------------------------------------------------------
+
+# (B, T, H, dh, initial state) of each WKV-6 check: rwkv6-3b's decode call
+# (the serving path's only shape: the ssm family runs one token per call),
+# the parity phase's 64-token call, the reference's chunked threshold
+# (from S = 0, as the Pallas kernel starts) and a ragged small case with
+# masked lanes (dh = 16 of 32 threads).
+WKV_CASES = {"decode": (1, 1, 40, 64, "normal"), "t64": (1, 64, 40, 64,
+                                                          "normal"),
+             "t512": (1, 512, 40, 64, "zero"), "ragged": (2, 100, 4, 16,
+                                                          "normal")}
+WKV_DECAYS = ("model", "long")
+WKV_MAIN, WKV_LONG = "decode", "t512"
+# Output and final state within WKV_TOL of their max |value| against the
+# plain version.  Both sides compute in float32 from the same inputs (bf16
+# ones rounded before either sees them) and differ only in the order of
+# their float32 sums.  Where the output is rounded to bf16 (T >= 512 with
+# bf16 inputs, as the reference's chunked form does), each element may
+# also be off by its own rounding, 2^-8 of its size.
+WKV_TOL = 2e-5
+
+
+def wkv6_inputs(name: str, decay: str, dtype, device):
+    """Seeded r, k, v (normal, in ``dtype``), w (float32: the model's
+    exp(-exp(N(0, 1))), or the reference kernel test's uniform(0.75,
+    0.999), a long memory), u = 0.5 N(0, 1) and the initial state (zeros,
+    or 0.1 N(0, 1))."""
+    import numpy as np
+    import torch
+    B, T, H, dh, state = WKV_CASES[name]
+    rng = np.random.default_rng(list(WKV_CASES).index(name) * 2
+                                + WKV_DECAYS.index(decay) + 101)
+    shape = (B, T, H, dh)
+    r, k, v = (rng.standard_normal(shape) for _ in range(3))
+    w = (np.exp(-np.exp(rng.standard_normal(shape))) if decay == "model"
+         else rng.uniform(0.75, 0.999, shape))
+    u = 0.5 * rng.standard_normal((H, dh))
+    S0 = (np.zeros((B, H, dh, dh)) if state == "zero"
+          else 0.1 * rng.standard_normal((B, H, dh, dh)))
+    f32 = dict(dtype=torch.float32, device=device)
+    return ([torch.as_tensor(a, dtype=dtype, device=device)
+             for a in (r, k, v)]
+            + [torch.as_tensor(a, **f32) for a in (w, u, S0)])
+
+
+def check_wkv6(name: str, device) -> dict:
+    """The kernel against its plain version for both decay forms, float32
+    and bf16 r/k/v.  Returns the max |kernel - plain| of the output per
+    dtype and the largest error of output and state over their scale."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.wkv6 import CHUNKED_T
+    out = {"f32": 0.0, "bf16": 0.0, "rel": 0.0}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for decay in WKV_DECAYS:
+            r, k, v, w, u, S0 = wkv6_inputs(name, decay, dtype, device)
+            S = S0.clone()
+            got = K.wkv6(r, k, v, w, u, S)
+            want, S_want = K.wkv6_ref(r, k, v, w, u, S0)
+            what = f"wkv6 {name} {tag} {decay} decays"
+            if got.dtype != torch.float32 or got.shape != r.shape:
+                raise AssertionError(f"{what} gave {got.dtype} {got.shape}")
+            rounded = dtype != torch.float32 and r.shape[1] >= CHUNKED_T
+            if rounded and not torch.equal(got, got.bfloat16().float()):
+                raise AssertionError(f"{what}: output not rounded to bf16")
+            err = (got - want).abs()
+            scale = float(want.abs().max())
+            tol = WKV_TOL * scale + (2.0 ** -8 * want.abs() if rounded
+                                     else 0.0)
+            s_err = float((S - S_want).abs().max())
+            s_scale = float(S_want.abs().max())
+            if bool((err > tol).any()) or s_err > WKV_TOL * s_scale:
+                raise AssertionError(
+                    f"{what}: max |out err| {float(err.max())} of scale "
+                    f"{scale}, max |state err| {s_err} of scale {s_scale} "
+                    f"(tolerance {WKV_TOL} x scale)")
+            out[tag] = max(out[tag], float(err.max()))
+            out["rel"] = max(out["rel"], s_err / s_scale,
+                             0.0 if rounded else float(err.max()) / scale)
+    return out
+
+
+def wkv6_bound_ms(B: int, T: int, H: int, dh: int, itemsize: int) -> tuple:
+    """r, k, v (``itemsize``), w (float32) and u read once, the float32
+    state read and written once, the float32 output written once; the
+    float32 operations that the function needs per (token, head), at the
+    rate outside the tensor cores: r·S, dh² fused multiply-adds (2·dh²),
+    and the state update w_i·S_ij + k_i·v_j (3·dh²), so 5·dh².  The bonus
+    term factors as (Σ_i r_i·u_i·k_i)·v_j, O(dh); the kernel spends 7·dh²
+    because it does not factor it."""
+    n = B * T * H * dh
+    nbytes = 3 * itemsize * n + 4 * n + 4 * H * dh + 8 * B * H * dh * dh \
+        + 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 5 * B * H * T * dh * dh / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_wkv6(name: str) -> dict:
+    """bf16 r/k/v (the served dtype), the model's decays: the kernel and
+    its plain version.  No single PyTorch call computes WKV-6, so there is
+    no library time.  The state evolves in place from call to call."""
+    import torch
+    from repro_torch import kernels as K
+    r, k, v, w, u, S = wkv6_inputs(name, "model", torch.bfloat16, "cuda")
+    B, T, H, dh, _ = WKV_CASES[name]
+    b_ms, b_by = wkv6_bound_ms(B, T, H, dh, 2)
+
+    def kernel():
+        return K.wkv6(r, k, v, w, u, S)
+    return {
+        "ms": cuda_ms(kernel, 200),
+        "device_ms": device_ms(kernel, "wkv6_kernel"),
+        "plain_ms": cuda_ms(lambda: K.wkv6_ref(r, k, v, w, u, S),
+                            max(3, 100 // T)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+# -- phases 10 and 11 -------------------------------------------------------
+
+RWKV_SERVE_ARGV = ("--arch", "rwkv6-3b", "--lanes", "4", "--requests", "8",
+                   "--prompt-len", "64", "--gen", "16", "--arrival-rate",
+                   "2.0", "--seed", "0")
+RWKV_PARITY_PROMPT = 64
 
 
 # -- driver ----------------------------------------------------------------
@@ -886,17 +1100,50 @@ def main() -> int:
         f"max_memory_allocated {served['max_memory_allocated']} bytes; "
         f"phase wall {served['wall_s']:.1f} s (model init included); trace "
         f"(steps, lanes, regions) {served['trace_shape']}")
-    bd = served["breakdown"]
-    log(f"[8] one lane's decode call (torch.profiler, CUDA only): host wall "
-        f"{bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} ms, idle "
-        f"share {bd['idle_share']:.4f}, {bd['launches']:.1f} device "
-        f"operations per call; kernels by device time (ms per call, "
-        f"launches per call):")
-    for t, c, key in bd["top"]:
-        log(f"    {t:10.5f} {c:6d}  {key}")
+    log_breakdown("8", served["breakdown"])
     log(f"[8] verdict, equal on the kernel and numpy lanes "
         f"({served['analysis_launches']} seed-row launches): "
         f"{json.dumps(served['verdict'], sort_keys=True)}")
+
+    # 9. the WKV-6 kernel vs plain, float32 and bf16
+    wkv_err, wkv_t = {}, {}
+    for name in WKV_CASES:
+        wkv_err[name] = e = check_wkv6(name, "cuda")
+        msg = ""
+        if name in (WKV_MAIN, WKV_LONG):
+            wkv_t[name] = t = time_wkv6(name)
+            msg = (f"; bf16 kernel {t['ms']:.6f} ms per call, device "
+                   f"{t['device_ms']} ms, plain {t['plain_ms']:.6f} ms, "
+                   f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), no "
+                   f"library call")
+        log(f"[9] wkv6 {name} (B, T, H, dh, state) = {WKV_CASES[name]}: "
+            f"max|kernel-plain| f32 {e['f32']:.6g}, bf16 {e['bf16']:.6g}; "
+            f"largest error over scale {e['rel']:.3g} (tolerance {WKV_TOL})"
+            + msg)
+
+    # 10. rwkv parity, card vs host
+    t0 = time.perf_counter()
+    rparity = model_parity_phase(parity_config("rwkv6-3b"), "cuda",
+                                 chunk=RWKV_PARITY_PROMPT)
+    log(f"[10] rwkv6-3b width, 2 layers, f32: max|card-host| logits "
+        f"{rparity['max_abs_err']:.6g} of scale {rparity['logit_scale']:.6g}"
+        f" (tolerance {PARITY_RTOL} x scale); greedy tokens equal "
+        f"{rparity['tokens']}; card launches {rparity['launches']} over "
+        f"{rparity['calls']} model calls; {time.perf_counter() - t0:.1f} s")
+
+    # 11. serving rwkv6-3b FULL on the card, then its trace analyzed
+    rserved = serve_phase(RWKV_SERVE_ARGV, "cuda")
+    log(f"[11] serve {' '.join(RWKV_SERVE_ARGV)}: "
+        f"{json.dumps(rserved['summary'])}")
+    log(f"[11] {rserved['model_calls']} model calls, launches "
+        f"{rserved['launches']} (= 65 and 32 per call); "
+        f"max_memory_allocated {rserved['max_memory_allocated']} bytes; "
+        f"phase wall {rserved['wall_s']:.1f} s (model init included); "
+        f"trace (steps, lanes, regions) {rserved['trace_shape']}")
+    log_breakdown("11", rserved["breakdown"])
+    log(f"[11] verdict, equal on the kernel and numpy lanes "
+        f"({rserved['analysis_launches']} seed-row launches): "
+        f"{json.dumps(rserved['verdict'], sort_keys=True)}")
 
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
@@ -929,6 +1176,24 @@ def main() -> int:
             "prefill": {"shape": shape(prefill), **times[prefill]},
             "model_calls": served["model_calls"],
         })
+    rms = next(kd for kd in kernels if kd["name"] == "rmsnorm")
+    rms["launches_rwkv6_serve"] = rserved["launches"]["rmsnorm"]
+    t = wkv_t[WKV_MAIN]
+    kernels.append({
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": TPU_KERNELS["wkv6"],
+        "launches": rserved["launches"]["wkv6"],
+        "max_abs_err": max(e["f32"] for e in wkv_err.values()),
+        "max_abs_err_bf16": max(e["bf16"] for e in wkv_err.values()),
+        "max_err_over_scale": max(e["rel"] for e in wkv_err.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "device_ms": t["device_ms"], "shape": list(WKV_CASES[WKV_MAIN][:4]),
+        "dtype": "bfloat16",
+        "t512": {"shape": list(WKV_CASES[WKV_LONG][:4]), **wkv_t[WKV_LONG]},
+        "model_calls": rserved["model_calls"],
+    })
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ Each architecture the port uses provides a module
 ``repro_torch.configs.<id>`` with ``FULL`` (the exact published config)
 and ``SMOKE`` (a reduced same-family config).  Here are the four whose
 smoke configs ``scenarios.corpus.model_region_tree`` builds region trees
-from, the serving launcher's default ``st-100m``, and two dense GQA
+from, the serving launcher's default ``st-100m``, two dense GQA
 architectures the model tests reach (``mistral-nemo-12b``, and
-``h2o-danube-3-4b`` with its sliding window).  Dtypes are kept as strings;
+``h2o-danube-3-4b`` with its sliding window), and the ssm family's
+``rwkv6-3b``.  Dtypes are kept as strings;
 :meth:`ModelConfig.activation_dtype` and :meth:`ModelConfig.parameter_dtype`
 turn them into torch dtypes.
 """
@@ -138,7 +139,12 @@ class ModelConfig:
         def layer_params() -> int:
             p = 2 * d  # norms
             if self.family in ("ssm",):
-                # rwkv6 time-mix + channel-mix (approximate real layout)
+                # rwkv6 time-mix + channel-mix (approximate real layout).
+                # Kept equal to the reference's count, which leaves out
+                # two d x d matrices, half the decay lora and three
+                # d-vectors of each layer: 2,648,312,320 for
+                # rwkv6-3b against 3,073,231,360 real parameters, so
+                # serve/runtime.py counts weight bytes from the model.
                 tm = 4 * d * d + d * dh + 6 * d  # r,k,v,g,o + decay lora + mixes
                 cm = d * self.d_ff * 2
                 return p + tm + cm
@@ -209,7 +215,7 @@ def list_archs() -> List[str]:
 
 
 _ARCH_MODULES = ["chatglm3_6b", "h2o_danube3_4b", "mistral_nemo_12b",
-                 "gemma_7b", "deepseek_v2_lite", "mixtral_8x22b",
+                 "gemma_7b", "deepseek_v2_lite", "mixtral_8x22b", "rwkv6_3b",
                  "st_synthetic"]
 
 _loaded = False

@@ -8,7 +8,7 @@ that its main path went through the kernels.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"multi_seed_rows": 0, "rmsnorm": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "wkv6": 0}
 
 
 def reset_launches() -> None:
@@ -20,7 +20,8 @@ from .distance import multi_seed_rows, multi_seed_rows_ref  # noqa: E402
 from .flash_attention import (flash_attention,  # noqa: E402
                               flash_attention_ref)
 from .rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from .wkv6 import wkv6, wkv6_ref  # noqa: E402
 
 __all__ = ["LAUNCHES", "reset_launches", "multi_seed_rows",
            "multi_seed_rows_ref", "rmsnorm", "rmsnorm_ref",
-           "flash_attention", "flash_attention_ref"]
+           "flash_attention", "flash_attention_ref", "wkv6", "wkv6_ref"]

@@ -12,13 +12,17 @@ reads::
         --lanes 4 --requests 8 --prompt-len 512 --chunk 256 --gen 32 \\
         --trace serve.npz
     PYTHONPATH=src python -m repro_torch.cli.analyze_trace serve.npz
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+        --lanes 4 --requests 8 --prompt-len 64 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch st-100m \\
         --smoke --device cpu
 
-The model runs on the card (its RMSNorm and attention through the
-hand-written CUDA kernels) unless ``--device cpu`` asks for the kernels'
-plain versions on the host; without a card the default fails.  Weights
-are random, drawn from a ``torch.Generator`` seeded with ``--seed``.
+The model runs on the card (its RMSNorm and attention or WKV-6 through
+the hand-written CUDA kernels) unless ``--device cpu`` asks for the
+kernels' plain versions on the host; without a card the default fails.
+Families without multi-token cache writes (rwkv6-3b's ssm) clamp
+``--chunk`` to 1, as the reference does.  Weights are random, drawn from
+a ``torch.Generator`` seeded with ``--seed``.
 Reported throughput excludes the warmup (one untimed call per
 steady-state shape before the timed section) and splits prefill from
 decode: each phase's tokens over that phase's own region wall.

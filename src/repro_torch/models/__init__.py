@@ -1,5 +1,5 @@
 """Model registry: the twin of the reference's ``repro.models`` for the
-dense family (the other families wait for ROADMAP.md queue 6)."""
+dense and ssm families (the others wait for ROADMAP.md queue 6)."""
 from __future__ import annotations
 
 import dataclasses

@@ -4,9 +4,11 @@ The reference keeps a model's parameters as a nested dict of arrays whose
 per-layer entries are stacked along a leading L dimension (``lax.scan``
 over layers): ``{"embed": {"tokens"}, "layers": {"ln1", "ln2", "attn":
 {"wq", "wk", "wv", "wo"}, "mlp": {"wi", "wg", "wo"}}, "final_norm",
-"head"?}``.  :func:`params_from_numpy` takes that tree as numpy arrays and
-returns the state dict of :class:`transformer.Transformer` for the same
-weights, each layer its own slice.
+"head"?}`` for the dense family, with ``"block": {"mu_r", ..., "cr"}`` in
+place of ``"attn"`` and ``"mlp"`` for the ssm family.
+:func:`params_from_numpy` takes that tree as numpy arrays and returns the
+state dict of :class:`transformer.Transformer` for the same weights, each
+layer its own slice.
 """
 from __future__ import annotations
 
@@ -48,8 +50,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         pre = f"blocks.{i}."
         out[pre + "ln1"] = tensor_from_numpy(layers["ln1"][i], device)
         out[pre + "ln2"] = tensor_from_numpy(layers["ln2"][i], device)
-        for group in ("attn", "mlp"):
-            for name, stacked in layers[group].items():
+        for group in ("attn", "mlp", "block"):
+            for name, stacked in layers.get(group, {}).items():
                 out[f"{pre}{group}.{name}"] = tensor_from_numpy(stacked[i],
                                                                 device)
     return out

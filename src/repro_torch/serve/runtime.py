@@ -6,9 +6,10 @@ through the port's model on its device: per-lane batch-1 decode states
 (the KV cache's ring index is shared across a batch, so lanes at
 different positions cannot share one batched state) and true chunked
 prefill on the families whose attention cache accepts S > 1 writes
-(``supports_chunk``; of those only the dense family is ported).  On the
-card every model call goes through the hand-written RMSNorm and attention
-kernels.
+(``supports_chunk``; of those only the dense family is ported), one token
+per call on the others (the ssm family here).  On the card every model
+call goes through the hand-written kernels: RMSNorm, and attention
+(dense) or WKV-6 (ssm).
 
 Measurement follows the reference: perf_counter walls around each call,
 ended by ``torch.cuda.synchronize`` on the card (the reference's
@@ -41,7 +42,7 @@ from repro_torch.core import (BYTES, CPU_TIME, FLOPS, RAW_METRICS,
                               VMEM_PRESSURE, WALL_TIME)
 from repro_torch.core.collector import _pick_cpu_clock
 from repro_torch.core.trace import RegionTrace
-from repro_torch.models import ModelApi
+from repro_torch.models import ModelApi, rwkv
 from repro_torch.scenarios.traffic import prompt_tokens
 
 from .engine import DECODE, KV_APPEND, PREFILL, SAMPLE, LaneEvent, \
@@ -56,36 +57,56 @@ def supports_chunk(cfg) -> bool:
     return cfg.family in CHUNK_FAMILIES
 
 
-def call_costs(cfg, tokens: int, cache_slots: int) -> Tuple[float, float]:
+def call_costs(cfg, tokens: int, cache_slots: int,
+               weight_bytes: int) -> Tuple[float, float]:
     """Analytic (flops, bytes) of one batch-1 model call on ``tokens``
-    tokens against a ``cache_slots``-slot KV cache (dense family).
+    tokens against a ``cache_slots``-slot KV cache, with ``weight_bytes``
+    the bytes of the model's parameters (each read once per call).
 
     With S = tokens, K = cache_slots, L layers, width d, H query and KV key
-    heads of size dh, MLP width ff, vocabulary V, parameter itemsize w and
-    activation itemsize a:
+    heads of size dh, MLP width ff, vocabulary V and activation itemsize a,
+    the dense family:
 
         flops = 2·S·L·(d·H·dh + 2·d·KV·dh + H·dh·d + 3·d·ff)   projections, MLP
               + 4·S·K·H·dh·L                                     scores and P·V
               + 2·S·d·V                                          logits
-        bytes = w·param_count                  every weight read once
+        bytes = weight_bytes                   every weight read once
               + 2·L·K·KV·dh·a                  the KV cache read
               + 2·L·S·KV·dh·a                  the new KV slots written
               + 4·S·V                          float32 logits written
 
     The attention term counts every cache slot, masked or not, because the
-    kernel scores them all.  Norms, rope and elementwise work are left
-    out.  These are not expected to equal the reference's numbers, which
-    come from XLA's cost analysis of the compiled program.
+    kernel scores them all.  The ssm family (RWKV-6, H heads of dh, the
+    decay lora of rank 64; K is not used):
+
+        flops = 2·S·L·(6·d² + 2·64·d + 2·d·ff)   r, k, v, g, o, cr; lora; ck, cv
+              + 7·S·L·H·dh²                      the WKV recurrence
+              + 2·S·d·V                          logits
+        bytes = weight_bytes + 2·L·H·dh²·4       the float32 state read, written
+              + 4·S·V
+
+    The recurrence is counted as the kernel computes it, 7·dh² per (token,
+    head); the function needs 5·dh² (chip_smoke.py's bound counts that).
+    Norms, rope and elementwise work are left out.  These are not expected
+    to equal the reference's numbers, which come from XLA's cost analysis
+    of the compiled program.
     """
     S, K, L = tokens, cache_slots, cfg.n_layers
-    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    dh, ff, V = cfg.resolved_head_dim, cfg.d_ff, cfg.vocab
-    w = torch.empty((), dtype=cfg.parameter_dtype()).element_size()
+    d, V = cfg.d_model, cfg.vocab
+    if cfg.family == "ssm":
+        H, dh = rwkv.heads(cfg)
+        flops = (2 * S * L * (6 * d * d + 2 * rwkv.LORA * d
+                              + 2 * d * cfg.d_ff)
+                 + 7 * S * L * H * dh * dh + 2 * S * d * V)
+        nbytes = weight_bytes + 2 * L * H * dh * dh * 4 + 4 * S * V
+        return float(flops), float(nbytes)
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    dh, ff = cfg.resolved_head_dim, cfg.d_ff
     a = torch.empty((), dtype=cfg.activation_dtype()).element_size()
     flops = (2 * S * L * (d * H * dh + 2 * d * KV * dh + H * dh * d
                           + 3 * d * ff)
              + 4 * S * K * H * dh * L + 2 * S * d * V)
-    nbytes = (w * cfg.param_count() + 2 * L * K * KV * dh * a
+    nbytes = (weight_bytes + 2 * L * K * KV * dh * a
               + 2 * L * S * KV * dh * a + 4 * S * V)
     return float(flops), float(nbytes)
 
@@ -128,6 +149,10 @@ class TorchBackend:
         self._prompt: List[Optional[np.ndarray]] = [None] * lanes
         self.outputs: Dict[int, List[int]] = {}
         self.model_calls = 0       # decode_step calls, warmup included
+        # Counted from the model, not from cfg.param_count(), which
+        # under-counts the ssm family as the reference's does.
+        self.weight_bytes = sum(p.numel() * p.element_size()
+                                for p in model.parameters())
         # A window caps the cache's slots (layers.init_attention_cache).
         self.cache_slots = max_len if cfg.window is None \
             else min(max_len, cfg.window)
@@ -200,7 +225,8 @@ class TorchBackend:
                 a, k = ev.prefill_start, ev.prefill_tokens
                 toks = torch.as_tensor(self._prompt[lane][:, a:a + k],
                                        device=self.device)
-                fl, by = call_costs(self.cfg, k, self.cache_slots)
+                fl, by = call_costs(self.cfg, k, self.cache_slots,
+                                    self.weight_bytes)
                 (logits, _), dw, dc = self._timed(
                     self._decode, self._state[lane], toks,
                     self._positions(a, k))
@@ -214,7 +240,8 @@ class TorchBackend:
                                           self._pending_logits[lane])
                 self._write(tr, SAMPLE, lane, dw, dc, *sample_costs(self.cfg))
                 self.outputs[req.rid].append(int(tok[0, 0]))
-                fl, by = call_costs(self.cfg, 1, self.cache_slots)
+                fl, by = call_costs(self.cfg, 1, self.cache_slots,
+                                    self.weight_bytes)
                 (logits, _), dw, dc = self._timed(
                     self._decode, self._state[lane], tok, ev.decode_pos)
                 self._pending_logits[lane] = logits

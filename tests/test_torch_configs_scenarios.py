@@ -16,8 +16,8 @@ from repro_torch.scenarios import faults as port_faults
 
 TREE_ARCHS = ["mixtral-8x22b", "deepseek-v2-lite-16b", "gemma-7b",
               "chatglm3-6b"]
-# Dense architectures the models and the serving launcher reach.
-MODEL_ARCHS = ["st-100m", "mistral-nemo-12b", "h2o-danube-3-4b"]
+# Architectures the models and the serving launcher reach.
+MODEL_ARCHS = ["st-100m", "mistral-nemo-12b", "h2o-danube-3-4b", "rwkv6-3b"]
 
 
 @pytest.mark.parametrize("arch", TREE_ARCHS + MODEL_ARCHS)

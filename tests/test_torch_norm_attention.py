@@ -257,7 +257,7 @@ def test_cpu_path_launches_nothing():
     K.flash_attention(*_attn_args())
     K.rmsnorm(torch.ones(3, 8), torch.zeros(8), 1e-6)
     assert K.LAUNCHES == {"multi_seed_rows": 0, "rmsnorm": 0,
-                          "flash_attention": 0}
+                          "flash_attention": 0, "wkv6": 0}
 
 
 # -- on the card ---------------------------------------------------------------

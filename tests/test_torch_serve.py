@@ -181,14 +181,20 @@ def test_spool_dir_raises_naming_the_queue():
 
 def test_call_costs_formula():
     """gemma smoke (L=2, d=64, H=KV=4, dh=16, ff=128, V=256, float32) at
-    S=8 tokens over a 20-slot cache, counted by hand."""
+    S=8 tokens over a 20-slot cache, counted by hand; the weight bytes the
+    backend counts from the dense model equal 4 · param_count."""
     cfg = get_arch("gemma-7b").smoke
     proj = 64 * 64 + 2 * 64 * 64 + 64 * 64 + 3 * 64 * 128
     flops = 2 * 8 * 2 * proj + 4 * 8 * 20 * 64 * 2 + 2 * 8 * 64 * 256
     nbytes = (4 * cfg.param_count() + 2 * 2 * 20 * 64 * 4
               + 2 * 2 * 8 * 64 * 4 + 4 * 8 * 256)
-    assert call_costs(cfg, 8, 20) == (float(flops), float(nbytes))
+    assert call_costs(cfg, 8, 20, 4 * cfg.param_count()) == \
+        (float(flops), float(nbytes))
     assert cfg.param_count() == ref_arch("gemma-7b").smoke.param_count()
+    backend = TorchBackend(cfg, build(cfg, "cpu"),
+                           transformer.Transformer(cfg, "cpu", seed=0),
+                           lanes=1, max_len=8, prefill_chunk=4)
+    assert backend.weight_bytes == 4 * cfg.param_count()
 
 
 # -- chip_smoke rehearsal ----------------------------------------------------
