@@ -25,12 +25,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    straggler and an I/O hotspot, saved, loaded and analyzed on the kernel
    lane and on the exact numpy lane; the two verdicts must be equal;
 6. serving kernels vs plain: RMSNorm at (1, 3072), (256, 3072) and
-   (300, 3840) and attention at gemma-7b's decode and 256-token prefill
-   over a 545-slot cache (half unwritten at decode) and at danube's GQA
+   (300, 3840) and attention at gemma-7b's decode, its first 256-token
+   prefill chunk (positions 0..255, slots 256.. unwritten: key tiles
+   skipped) and its second, over a 545-slot cache, and at danube's GQA
    with a 4096 window over a wrapped 4096-slot ring, each in float32
    (tolerance 2e-5) and bf16 (3e-2 against the float32 plain version);
-   CUDA-event and profiler times beside the plain version, one library
-   call and the bound;
+   the path each attention case takes; CUDA-event and profiler times
+   beside the plain version, one library call (per-call and device time)
+   and the bound;
 7. model parity: gemma-7b's full width cut to 2 layers, float32, seeded
    weights on the host and a copy on the card; a 16-token prefill chunk
    and 4 greedy decode steps on each; logits within 1e-4 of their scale,
@@ -69,6 +71,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -96,6 +99,17 @@ KERNEL_SOURCES = ("distance", "rmsnorm", "flash_attention", "wkv6")
 TPU_KERNELS = {"rmsnorm": "src/repro/kernels/rmsnorm.py:23",
                "flash_attention": "src/repro/kernels/flash_attention.py:84",
                "wkv6": "src/repro/kernels/rwkv6_scan.py:69"}
+# The CUDA symbols of each ported kernel.  Every wrapper call launches one
+# of its entry kernels; the attention's split-K decode path then launches
+# its merge kernel (FOLLOWERS: follower -> the entry it follows).
+ENTRY_SYMBOLS = {
+    "multi_seed_rows": ("multi_seed_rows_kernel",),
+    "rmsnorm": ("rmsnorm_kernel",),
+    "flash_attention": ("flash_attention_split_kernel",
+                        "flash_attention_wgmma_kernel",
+                        "flash_attention_kernel"),
+    "wkv6": ("wkv6_kernel",)}
+FOLLOWERS = {"flash_attention_merge_kernel": "flash_attention_split_kernel"}
 
 
 def log(msg: str) -> None:
@@ -241,26 +255,70 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel_name: str, iters: int = 100):
-    """Device time per launch of the CUDA kernel ``kernel_name`` alone
-    over ``iters`` calls of ``fn``, from torch.profiler's CUPTI trace
-    (None when it records no device time).  Back-to-back calls through
-    the wrapper can be bound by the host's per-call work instead; this
-    separates the two."""
+def _symbols(kernel: str) -> tuple:
+    """Every CUDA symbol of a ported kernel: its entries and followers."""
+    entries = ENTRY_SYMBOLS[kernel]
+    return entries + tuple(f for f, lead in FOLLOWERS.items()
+                           if lead in entries)
+
+
+def symbol_counts(rows) -> dict:
+    """Launches and device time (us) per CUDA symbol of the ported
+    kernels in profiler ``rows`` ((device time, count, key)), a key
+    matching a symbol when it holds the symbol as a whole word."""
+    known = {s for n in ENTRY_SYMBOLS for s in _symbols(n)}
+    counts, times = {}, {}
+    for t, c, key in rows:
+        for sym in known & set(re.findall(r"\w+", key)):
+            counts[sym] = counts.get(sym, 0) + c
+            times[sym] = times.get(sym, 0.0) + t
+    return {"counts": counts, "times": times}
+
+
+def _profile_rows(fn, iters: int) -> list:
+    """(device time us, count, key) of every profiler row with device time
+    over ``iters`` calls of ``fn``, after one call outside the profile and
+    a pause inside it: CUPTI can miss the kernels of the first milliseconds
+    after recording starts (a run lost all 50 calls of a 0.02 ms kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel_name in e.key:
-            total_us += e.device_time_total
-            count += e.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+    return [(e.device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.device_time_total > 0]
+
+
+PROFILE_TRIES = 3
+
+
+def device_ms(fn, kernel: str, iters: int = 100):
+    """Device time per wrapper call of the ported kernel ``kernel``: the
+    device time of all its CUDA symbols (a split-K call's split and merge
+    kernels together) over ``iters`` calls of ``fn``, divided by the
+    profiled launches of its entry kernels (CUPTI may list fewer); from
+    torch.profiler's CUPTI trace, profiled again (``PROFILE_TRIES`` in
+    all) while it lists no launch, and None when it records no device
+    time.  Back-to-back calls through the wrapper can be bound by the
+    host's per-call work instead; this separates the two."""
+    for _ in range(PROFILE_TRIES):
+        sc = symbol_counts(_profile_rows(fn, iters))
+        calls = sum(sc["counts"].get(s, 0) for s in ENTRY_SYMBOLS[kernel])
+        if calls:
+            break
+    total_us = sum(sc["times"].get(s, 0.0) for s in _symbols(kernel))
+    return total_us / calls / 1e3 if calls and total_us > 0 else None
+
+
+def library_device_ms(fn, iters: int = 50):
+    """Device time per call of a library yardstick: every profiler row
+    with device time over ``iters`` calls of ``fn`` (all the kernels and
+    copies it launches), divided by ``iters``."""
+    return sum(t for t, _, _ in _profile_rows(fn, iters)) / iters / 1e3
 
 
 def time_kernel(m: int, n: int, k: int) -> dict:
@@ -274,7 +332,7 @@ def time_kernel(m: int, n: int, k: int) -> dict:
         "library_ms": cuda_ms(lambda: library_rows(pts, sq, idx), 200),
         "bound_ms": b_ms, "bound_by": b_by,
         "device_ms": device_ms(lambda: D.multi_seed_rows(pts, sq, idx),
-                               "multi_seed_rows_kernel"),
+                               "multi_seed_rows"),
     }
 
 
@@ -405,7 +463,7 @@ RMS_SHAPES = ((1, 3072), (256, 3072), (300, 3840))
 GEMMA_SLOTS = 545
 UNWRITTEN = 2 ** 30
 ATTN_CASES = ("gemma-decode", "gemma-prefill", "danube-decode",
-              "danube-prefill")
+              "danube-prefill", "gemma-prefill-first")
 # The main path launches the decode shapes most (57 and 28 launches per
 # decode call, 8 x 32 decode calls against 16 prefill chunks); those go
 # into the machine-readable kernels line, the prefill shapes beside them.
@@ -426,18 +484,20 @@ BF16_FLOP_PER_S = 989e12
 def attention_case(name: str) -> dict:
     """Shape and positions of one attention check.  gemma: H = KV = 16,
     dh = 256 over the 545-slot cache; decode at position 272 with slots
-    273.. unwritten, prefill of the second 256-token chunk (positions
-    256..511 over written slots 0..511).  danube: H = 32, KV = 8,
-    dh = 120, window 4096 over a 4096-slot ring at position 5000 (slot i
-    holds position i + 4096 for i <= 904, else i), decode and a 256-token
-    chunk ending there."""
+    273.. unwritten, prefill of the first 256-token chunk (positions
+    0..255 over written slots 0..255, slots 256..544 unwritten: the main
+    path's first chunk, where key tiles are skipped) and of the second
+    (positions 256..511 over written slots 0..511).  danube: H = 32,
+    KV = 8, dh = 120, window 4096 over a 4096-slot ring at position 5000
+    (slot i holds position i + 4096 for i <= 904, else i), decode and a
+    256-token chunk ending there."""
     import numpy as np
     if name.startswith("gemma"):
-        decode = name == "gemma-decode"
-        written = 273 if decode else 512
+        Q, written = {"gemma-decode": (1, 273), "gemma-prefill": (256, 512),
+                      "gemma-prefill-first": (256, 256)}[name]
         k_pos = np.full(GEMMA_SLOTS, UNWRITTEN, np.int64)
         k_pos[:written] = np.arange(written)
-        q_pos = np.arange(written - (1 if decode else 256), written)
+        q_pos = np.arange(written - Q, written)
         return dict(H=16, KV=16, dh=256, window=None, q_pos=q_pos,
                     k_pos=k_pos)
     slots, last = 4096, 5000
@@ -536,11 +596,22 @@ def rmsnorm_bound_ms(n: int, d: int, itemsize: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def needed_keys(live) -> int:
+    """Keys whose k and v the function must read, from the (Q, K) mask of
+    live pairs: those live for some query, or all K when a query has no
+    live key (it averages v over every key)."""
+    import numpy as np
+    if not live.any(axis=1).all():
+        return live.shape[1]
+    return int(np.count_nonzero(live.any(axis=0)))
+
+
 def attention_bound_ms(name: str, itemsize: int) -> tuple:
-    """q, k, v and the positions read once, the output written once; 4·dh
-    operations (score and P·V) for every unmasked (query, key, head) of
-    this case's positions, at the tensor-core rate for bf16 and the
-    float32 rate otherwise."""
+    """q, the k and v of the keys the function needs (``needed_keys``) and
+    the positions read once, the output written once; 4·dh operations
+    (score and P·V) for every unmasked (query, key, head) of this case's
+    positions, at the tensor-core rate for bf16 and the float32 rate
+    otherwise."""
     import numpy as np
     c = attention_case(name)
     Q, K = len(c["q_pos"]), len(c["k_pos"])
@@ -548,7 +619,8 @@ def attention_bound_ms(name: str, itemsize: int) -> tuple:
     live = kp <= qp
     if c["window"] is not None:
         live &= kp > qp - c["window"]
-    nbytes = (itemsize * (2 * Q * c["H"] * c["dh"] + 2 * K * c["KV"] * c["dh"])
+    nbytes = (itemsize * (2 * Q * c["H"] * c["dh"]
+                          + 2 * needed_keys(live) * c["KV"] * c["dh"])
               + 4 * (Q + K))
     ops = 4 * c["dh"] * c["H"] * int(np.count_nonzero(live))
     rate = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
@@ -567,21 +639,31 @@ def time_rmsnorm(n: int, d: int) -> dict:
     x, w = rmsnorm_inputs(n, d, torch.bfloat16, "cuda")
     xf, w1 = x.float(), 1.0 + w.float()
     b_ms, b_by = rmsnorm_bound_ms(n, d, 2)
+
+    def library():
+        return F.rms_norm(xf, (d,), w1, RMS_EPS)
     return {
         "ms": cuda_ms(lambda: K.rmsnorm(x, w, RMS_EPS), 200),
-        "device_ms": device_ms(lambda: K.rmsnorm(x, w, RMS_EPS),
-                               "rmsnorm_kernel"),
+        "device_ms": device_ms(lambda: K.rmsnorm(x, w, RMS_EPS), "rmsnorm"),
         "plain_ms": cuda_ms(lambda: K.rmsnorm_ref(x, w, RMS_EPS), 200),
-        "library_ms": cuda_ms(lambda: F.rms_norm(xf, (d,), w1, RMS_EPS),
-                              200),
+        "library_ms": cuda_ms(library, 200),
+        "library_device_ms": library_device_ms(library),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def attention_plan_of(name: str, dtype):
+    """The kernel path :func:`attention_plan` picks for one case."""
+    from repro_torch.kernels.flash_attention import attention_plan
+    B, Q, H, KV, dh, K = attention_shape(name)
+    return attention_plan(B, Q, H, KV, dh, K, dtype)
 
 
 def time_attention(name: str) -> dict:
     """bf16: the kernel, its plain version and one library call,
     ``F.scaled_dot_product_attention`` with a boolean mask built from the
-    positions over k/v repeated to the query heads (timed only)."""
+    positions over k/v repeated to the query heads (timed only, per call
+    and on the device)."""
     import math
     import torch
     import torch.nn.functional as F
@@ -608,11 +690,13 @@ def time_attention(name: str) -> dict:
     def library():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                               scale=scale)
+    plan = attention_plan_of(name, torch.bfloat16)
     return {
         "ms": cuda_ms(kernel, 100),
-        "device_ms": device_ms(kernel, "flash_attention_kernel", 50),
+        "device_ms": device_ms(kernel, "flash_attention", 50),
         "plain_ms": cuda_ms(plain, 20), "library_ms": cuda_ms(library, 100),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "library_device_ms": library_device_ms(library),
+        "bound_ms": b_ms, "bound_by": b_by, "plan": plan._asdict(),
     }
 
 
@@ -712,6 +796,50 @@ SERVE_ARGV = ("--arch", "gemma-7b", "--lanes", "4", "--requests", "8",
               "--arrival-rate", "2.0", "--seed", "0")
 
 
+# A phase whose wall time is this many ticks of the trace's CPU clock
+# reads a raw CPU time of 0 with a chance below e**-20 (each call's reading
+# crosses a tick with odds of its length over the tick), so its raw CPU
+# time is held to be positive.
+RAW_CPU_TICKS = 20
+
+
+def check_phase_times(trace, tree, phases) -> None:
+    """Wall and CPU time of every serving phase, finite and positive.
+
+    A CPU clock may advance in ticks (10 ms on some hosts) longer than a
+    whole phase (the sampling region's 256 calls of about 0.03 ms), whose
+    raw CPU reading is then 0 by chance; the trace records the tick, and
+    ``RegionTrace.reduce`` snaps such readings to wall.  So each phase's
+    raw CPU time must be positive where its wall time spans at least
+    ``RAW_CPU_TICKS`` ticks (or the trace records no tick), and only
+    below that is it read after the reduction, as the analyzer reads it."""
+    import numpy as np
+    from repro_torch.core import CPU_TIME, WALL_TIME
+    tick = trace.meta.get("cpu_tick") or 0.0
+    reduced = trace.reduce()
+    for phase in phases:
+        rid = tree.by_path(f"serve/{phase}").region_id
+        wall = trace.metric(WALL_TIME)[..., trace.col(rid)]
+        cpu = trace.metric(CPU_TIME)[..., trace.col(rid)]
+        for metric, col in ((WALL_TIME, wall), (CPU_TIME, cpu)):
+            if not (np.isfinite(col).all() and (col >= 0).all()):
+                raise AssertionError(f"serving trace: {metric} of "
+                                     f"serve/{phase} is not finite and "
+                                     f"non-negative")
+        raw = wall.sum() >= RAW_CPU_TICKS * tick
+        total = {WALL_TIME: float(wall.sum()),
+                 CPU_TIME: float(cpu.sum() if raw else
+                                 reduced.metric(CPU_TIME)[:, reduced.col(rid)]
+                                 .sum())}
+        for metric, t in total.items():
+            if not t > 0:
+                raise AssertionError(
+                    f"serving trace: {metric} of serve/{phase} is {t} "
+                    f"({'raw' if metric == WALL_TIME or raw else 'reduced'};"
+                    f" CPU clock {trace.meta.get('cpu_clock')}, tick {tick}"
+                    f" s)")
+
+
 def serve_phase(argv, device) -> dict:
     """Serve the traffic through ``repro_torch.launch.serve`` with launch
     counts from 0; every model call must have launched 2L+1 RMSNorms and L
@@ -719,11 +847,9 @@ def serve_phase(argv, device) -> dict:
     must fit the card, every request must complete with its tokens in the
     vocabulary, and the saved serving trace, analyzed on the kernel lane
     and on the numpy lane, must give equal verdict docs."""
-    import numpy as np
     import torch
     from repro_torch import kernels as K
-    from repro_torch.core import (CPU_TIME, WALL_TIME, AutoAnalyzer,
-                                  RegionTrace, tree_from_schema)
+    from repro_torch.core import AutoAnalyzer, RegionTrace, tree_from_schema
     from repro_torch.launch import serve
     on_card = torch.device(device).type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
@@ -755,13 +881,7 @@ def serve_phase(argv, device) -> dict:
                                             for t in toks):
             raise AssertionError(f"request {rid} generated {toks}")
     tree = tree_from_schema(trace.schema)
-    for phase in ("prefill", "decode", "sample"):
-        j = trace.col(tree.by_path(f"serve/{phase}").region_id)
-        for metric in (WALL_TIME, CPU_TIME):
-            col = trace.metric(metric)[..., j]
-            if not (np.isfinite(col).all() and col.sum() > 0):
-                raise AssertionError(f"serving trace: {metric} of "
-                                     f"serve/{phase} is {col.sum()}")
+    check_phase_times(trace, tree, ("prefill", "decode", "sample"))
     K.reset_launches()
     res_k = AutoAnalyzer(tree, distance_backend="kernel",
                          device=device).analyze_trace(trace)
@@ -772,6 +892,8 @@ def serve_phase(argv, device) -> dict:
         raise AssertionError(f"serving verdicts differ between lanes:\n"
                              f"kernel {doc_k}\nnumpy  {doc_n}")
     return {"summary": serve.summary(engine), "wall_s": wall,
+            "cpu_clock": (trace.meta.get("cpu_clock"),
+                          trace.meta.get("cpu_tick")),
             "breakdown": decode_breakdown(backend) if on_card else None,
             "model_calls": calls, "launches": launches,
             "max_memory_allocated": peak, "verdict": doc_n,
@@ -790,8 +912,9 @@ def decode_breakdown(backend,
     activity only) warms up and drops its records, then ``steps`` greedy
     decode calls recorded.  Returns the host wall per call, the device's
     busy time per call (the sum of its kernels' and copies' times), the
-    idle share 1 - busy / wall, the device operations per call and the
-    kernels that took longest.  The busy time is only as complete as the
+    idle share 1 - busy / wall, the device operations per call, each
+    ported kernel's device time per call and the kernels that took
+    longest.  The busy time is only as complete as the
     profiler's event list, so each ported kernel's profiled launches are
     held to the launch counter over the same calls (``profile_complete``)."""
     import torch
@@ -812,6 +935,10 @@ def decode_breakdown(backend,
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         prof.step()  # the warm-up call's records are dropped
+        # Recording starts at that step; CUPTI can miss the kernels of the
+        # first milliseconds after it (a run lost the first layer's), so
+        # the recorded calls start after a pause.
+        time.sleep(0.2)
         before = dict(K.LAUNCHES)
         t0 = time.perf_counter()
         for i in range(1, steps + 1):
@@ -828,7 +955,11 @@ def decode_breakdown(backend,
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     profiled = profile_complete(rows, launched)
+    times = symbol_counts(rows)["times"]
+    ported = {n: sum(times.get(sym, 0.0) for sym in _symbols(n)) / steps
+              / 1e3 for n, c in launched.items() if c}
     return {"wall_ms": wall / steps * 1e3, "busy_ms": busy / steps * 1e3,
+            "ported_ms": ported,
             "idle_share": 1.0 - busy / wall,
             "launches": sum(r[1] for r in rows) / steps,
             "profiled_launches": profiled,
@@ -839,18 +970,24 @@ def decode_breakdown(backend,
 
 def profile_complete(rows, launched: dict) -> dict:
     """The launches of each ported kernel in the profiler's ``rows``
-    ((device time, count, key), keys holding the CUDA symbol
-    ``<name>_kernel``), held to ``launched``, the launch counter's delta
-    over the same calls.  Raises when the profiler lists another number
-    for any kernel, since a busy time and idle share summed from a list
-    that lost events would be wrong."""
-    profiled = {n: sum(c for _, c, key in rows if f"{n}_kernel" in key)
+    ((device time, count, key), keys holding a CUDA symbol of
+    ENTRY_SYMBOLS or FOLLOWERS), held to ``launched``, the launch
+    counter's delta over the same calls: each wrapper call is one launch
+    of an entry kernel, and each follower (the split-K merge) is launched
+    exactly as often as the entry it follows.  Raises when the profiler
+    lists another number for any kernel, since a busy time and idle share
+    summed from a list that lost events would be wrong."""
+    counts = symbol_counts(rows)["counts"]
+    profiled = {n: sum(counts.get(s, 0) for s in ENTRY_SYMBOLS[n])
                 for n in launched}
-    if profiled != launched:
+    followers = {f: (counts.get(f, 0), counts.get(lead, 0))
+                 for f, lead in FOLLOWERS.items()}
+    if profiled != launched or any(a != b for a, b in followers.values()):
         raise AssertionError(
             f"the profiler lists {profiled} launches of the ported kernels "
-            f"where the launch counter reads {launched} over the same "
-            f"calls: its event list is incomplete")
+            f"(followers against their entries: {followers}) where the "
+            f"launch counter reads {launched} over the same calls: its "
+            f"event list is incomplete")
     return {n: c for n, c in profiled.items() if c}
 
 
@@ -862,6 +999,8 @@ def log_breakdown(phase: str, bd: dict) -> None:
         f"launches per call):")
     for t, c, key in bd["top"]:
         log(f"    {t:10.5f} {c:6d}  {key}")
+    log(f"[{phase}] ported kernels' device ms per call (all of each "
+        f"kernel's CUDA symbols): {bd['ported_ms']}")
     log(f"[{phase}] ported kernels' launches over the "
         f"{DECODE_PROFILE_STEPS} profiled calls: profiler "
         f"{bd['profiled_launches']}, launch counter "
@@ -981,7 +1120,7 @@ def time_wkv6(name: str) -> dict:
         return K.wkv6(r, k, v, w, u, S)
     return {
         "ms": cuda_ms(kernel, 200),
-        "device_ms": device_ms(kernel, "wkv6_kernel"),
+        "device_ms": device_ms(kernel, "wkv6"),
         "plain_ms": cuda_ms(lambda: K.wkv6_ref(r, k, v, w, u, S),
                             max(3, 100 // T)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -1071,17 +1210,30 @@ def main() -> int:
             f"{rms_err[(n, d)]['bf16']:.6g} (tolerance {BF16_TOL}); bf16 "
             f"kernel {t['ms']:.6f} ms per call, device {t['device_ms']} ms,"
             f" plain {t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} "
-            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+            f"ms per call, device {t['library_device_ms']:.6f} ms, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
     attn_err, attn_t = {}, {}
     for name in ATTN_CASES:
         attn_err[name] = check_attention(name, "cuda")
         attn_t[name] = t = time_attention(name)
-        log(f"[6] attention {name}: max|kernel-plain| f32 "
+        log(f"[6] attention {name} {attention_shape(name)} (B, Q, H, KV, "
+            f"dh, K): paths f32 {attention_plan_of(name, torch.float32).path}"
+            f", bf16 {t['plan']}; max|kernel-plain| f32 "
             f"{attn_err[name]['f32']:.6g} (tolerance {F32_TOL}), bf16 "
             f"{attn_err[name]['bf16']:.6g} (tolerance {BF16_TOL}); bf16 "
             f"kernel {t['ms']:.6f} ms per call, device {t['device_ms']} ms,"
             f" plain {t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} "
-            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+            f"ms per call, device {t['library_device_ms']:.6f} ms, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    first, second = attn_t["gemma-prefill-first"], attn_t["gemma-prefill"]
+    if first["device_ms"] is None or second["device_ms"] is None:
+        raise AssertionError("the profiler recorded no device time for a "
+                             "gemma prefill case")
+    if not first["device_ms"] < second["device_ms"]:
+        raise AssertionError(
+            f"key tiles were not skipped: gemma-prefill-first took "
+            f"{first['device_ms']} ms of device time, gemma-prefill "
+            f"{second['device_ms']} ms")
 
     # 7. model parity, card vs host
     t0 = time.perf_counter()
@@ -1099,7 +1251,8 @@ def main() -> int:
         f"{served['launches']} (= 57 and 28 per call); "
         f"max_memory_allocated {served['max_memory_allocated']} bytes; "
         f"phase wall {served['wall_s']:.1f} s (model init included); trace "
-        f"(steps, lanes, regions) {served['trace_shape']}")
+        f"(steps, lanes, regions) {served['trace_shape']}; CPU clock "
+        f"(name, tick s) {served['cpu_clock']}")
     log_breakdown("8", served["breakdown"])
     log(f"[8] verdict, equal on the kernel and numpy lanes "
         f"({served['analysis_launches']} seed-row launches): "
@@ -1139,7 +1292,8 @@ def main() -> int:
         f"{rserved['launches']} (= 65 and 32 per call); "
         f"max_memory_allocated {rserved['max_memory_allocated']} bytes; "
         f"phase wall {rserved['wall_s']:.1f} s (model init included); "
-        f"trace (steps, lanes, regions) {rserved['trace_shape']}")
+        f"trace (steps, lanes, regions) {rserved['trace_shape']}; CPU clock "
+        f"(name, tick s) {rserved['cpu_clock']}")
     log_breakdown("11", rserved["breakdown"])
     log(f"[11] verdict, equal on the kernel and numpy lanes "
         f"({rserved['analysis_launches']} seed-row launches): "
@@ -1176,6 +1330,9 @@ def main() -> int:
             "prefill": {"shape": shape(prefill), **times[prefill]},
             "model_calls": served["model_calls"],
         })
+    attn = next(kd for kd in kernels if kd["name"] == "flash_attention")
+    attn["cases"] = {name: {"shape": attention_shape(name), **attn_t[name]}
+                     for name in ATTN_CASES}
     rms = next(kd for kd in kernels if kd["name"] == "rmsnorm")
     rms["launches_rwkv6_serve"] = rserved["launches"]["rmsnorm"]
     t = wkv_t[WKV_MAIN]

@@ -9,20 +9,25 @@ Masked scores are -1e30, so a fully masked row averages v uniformly, as
 the reference's ``models/layers.py::naive_attention`` does.  An optional
 logit softcap applies ``cap · tanh(s / cap)`` before the mask.
 
-:func:`flash_attention` launches the hand-written online-softmax kernel
+:func:`flash_attention` launches the hand-written kernels of
 ``csrc/flash_attention.cu`` (the port of the reference's Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention``; the source states
 its bound and design) on CUDA tensors, or raises; only tensors on the CPU
 take the plain version :func:`flash_attention_ref`, which materialises the
-scores.  Both keep the softmax probabilities in float32; the reference's
-``naive_attention`` rounds them to v's dtype before P·V, so in bfloat16
-the two differ by that rounding.
+scores.  :func:`attention_plan` picks the kernel's path from the shapes
+alone (no value of the positions is read on the host): split-K decode
+(flash-decoding, a split kernel and a merge kernel) for at most
+``DECODE_ROWS`` query rows per kv head, bf16 warpgroup tensor-core tiles
+(``wgmma``) above that, and the CUDA-core kernel for float32 above it.
+All keep the softmax probabilities in float32 or, on the tensor cores, as
+bf16 hi + lo parts; the reference's ``naive_attention`` rounds them to v's
+dtype before P·V, so in bfloat16 the two differ by that rounding.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,6 +36,64 @@ from . import LAUNCHES
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 DH_MAX = 256
 NEG_INF = -1e30
+
+# The plan's constants; DECODE_ROWS and MAX_SPLITS are also the bounds
+# that csrc/flash_attention.cu's split launch checks.
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+TARGET_BLOCKS = 2 * SMS   # split-K decode aims at two blocks per SM
+DECODE_ROWS = 8           # query rows (Q * H / KV) the split path takes
+MIN_SPLIT = 32            # keys per split, at least
+SPLIT_ALIGN = 16          # a split's keys, a multiple of this
+MAX_SPLITS = 256          # the merge kernel's bound
+PATHS = {"simt": 0, "split": 1, "wgmma": 2}
+
+
+class AttentionPlan(NamedTuple):
+    """How one call runs on the card: what the wrapper passes to the
+    kernel and allocates for it (the tiles inside each path are the CUDA
+    source's).
+
+    path : "split" (split-K decode and merge), "wgmma" (bf16 warpgroup
+        tensor-core tiles) or "simt" (the CUDA-core kernel).
+    split, n_splits : keys per split and the number of splits ("split").
+    workspace : float32 elements of the partials' workspace (0 unless
+        "split").
+    """
+    path: str
+    split: int = 0
+    n_splits: int = 0
+    workspace: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def attention_plan(B: int, Q: int, H: int, KV: int, dh: int, K: int,
+                   dtype: torch.dtype, aligned: bool = True) -> AttentionPlan:
+    """The kernel path and splits of one call, from its shapes (and
+    whether q, k, v, out and k_pos are 16-byte aligned) alone.
+
+    At most ``DECODE_ROWS`` query rows per kv head (rows = Q * H / KV: the
+    served decode call) take split-K decode: the keys are cut into
+    ``n_splits`` splits of ``split`` keys (a multiple of ``SPLIT_ALIGN``, at
+    least ``MIN_SPLIT``), so that ``B * KV * n_splits`` blocks reach
+    ``TARGET_BLOCKS`` where K allows, and no split is empty.  More rows in
+    bf16 with dh a multiple of 8 and aligned pointers take the tensor-core
+    tiles; the rest the CUDA-core kernel.
+    """
+    rows = Q * (H // KV)
+    if rows <= DECODE_ROWS:
+        want = _cdiv(TARGET_BLOCKS, B * KV)
+        split = max(MIN_SPLIT, _cdiv(K, want), _cdiv(K, MAX_SPLITS))
+        split = _cdiv(split, SPLIT_ALIGN) * SPLIT_ALIGN
+        n_splits = _cdiv(K, split)
+        return AttentionPlan(
+            "split", split=split, n_splits=n_splits,
+            workspace=B * KV * n_splits * rows * (dh + 2))
+    if dtype == torch.bfloat16 and dh % 8 == 0 and aligned:
+        return AttentionPlan("wgmma")
+    return AttentionPlan("simt")
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,8 +160,9 @@ def _kernel_fn(dtype: torch.dtype):
     lib = load_library("flash_attention").lib
     fn = getattr(lib, f"flash_attention_{DTYPES[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -115,8 +179,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos : (Q,) int32; k_pos : (K,) int32.
     Returns (B, Q, H, dh) in q's dtype.
 
-    On CUDA one launch of ``csrc/flash_attention.cu`` on the current
-    stream; on the CPU :func:`flash_attention_ref`.
+    On CUDA one call of ``csrc/flash_attention.cu`` on the current stream,
+    on the path :func:`attention_plan` picks (the split path launches its
+    split kernel and its merge kernel, and allocates the partials'
+    workspace); on the CPU :func:`flash_attention_ref`.
     """
     _check(q, k, v, q_pos, k_pos, window, softcap)
     if q.device.type == "cpu":
@@ -129,18 +195,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or Q == 0 or K == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, k_pos, out))
+    plan = attention_plan(B, Q, H, KV, dh, K, q.dtype, aligned)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
+          if plan.workspace else None)
     fn = _kernel_fn(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(),
+                    None if ws is None else ws.data_ptr(),
                     B, Q, H, K, KV, dh, int(causal),
                     0 if window is None else int(window),
                     0.0 if softcap is None else float(softcap),
-                    1.0 / math.sqrt(dh), stream)
+                    1.0 / math.sqrt(dh), PATHS[plan.path], plan.split,
+                    stream)
     if status != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {status} "
-            f"(B={B}, Q={Q}, H={H}, K={K}, KV={KV}, dh={dh}, {q.dtype})")
+            f"(B={B}, Q={Q}, H={H}, K={K}, KV={KV}, dh={dh}, {q.dtype}, "
+            f"{plan})")
     LAUNCHES["flash_attention"] += 1
     return out

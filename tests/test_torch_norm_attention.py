@@ -310,3 +310,150 @@ def test_attention_kernel_matches_plain_on_card(cuda, name, dtype):
                                  causal=causal, window=window,
                                  softcap=softcap)
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+# Every path of the attention kernel (split-K decode up to 8 query rows per
+# kv head, bf16 tensor-core tiles and the float32 CUDA-core kernel above),
+# against the plain version on the same inputs.  Implicit positions
+# (q_pos = K - Q + arange(Q), k_pos = arange(K)), so K < Q holds rows with
+# no live key.  float32 at 2e-5; bf16 at 3e-2 and within its output
+# rounding, 2^-8 |want| + 1e-3.
+ATTN_Q = (1, 2, 15, 16, 17, 64, 65, 256)
+ATTN_K = (1, 63, 545)
+ATTN_DH = (8, 64, 120, 128, 256)
+ATTN_G = (1, 4, 8)
+
+
+def _card_inputs(cuda, dtype, seed, B, Q, H, KV, dh, K_, q_pos, k_pos):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(_normal(rng, (B, Q, H, dh))).to(cuda, dtype)
+    k, v = (torch.from_numpy(_normal(rng, (B, K_, KV, dh))).to(cuda, dtype)
+            for _ in range(2))
+    qp, kp = (torch.from_numpy(np.asarray(p, np.int32)).to(cuda)
+              for p in (q_pos, k_pos))
+    return q, k, v, qp, kp
+
+
+def _card_attention(q, k, v, qp, kp, **kw):
+    """One kernel call, held to one launch and to the plain version."""
+    K.reset_launches()
+    got = K.flash_attention(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = K.flash_attention_ref(q.float(), k.float(), v.float(), qp, kp,
+                                 **kw)
+    tol = F32_TOL if q.dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    if q.dtype == torch.bfloat16:
+        err = (got.float() - want).abs()
+        assert bool((err <= 2.0 ** -8 * want.abs() + 1e-3).all())
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", ATTN_G)
+@pytest.mark.parametrize("dh", ATTN_DH)
+@pytest.mark.parametrize("K_", ATTN_K)
+@pytest.mark.parametrize("Q", ATTN_Q)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_paths_match_plain_on_card(cuda, dtype, Q, K_, dh, g):
+    KV = 2
+    q, k, v, qp, kp = _card_inputs(cuda, dtype, Q * 1000 + K_ + dh + g, 1,
+                                   Q, g * KV, KV, dh, K_,
+                                   np.arange(K_ - Q, K_), np.arange(K_))
+    _card_attention(q, k, v, qp, kp)
+
+
+ATTN_FEATURES = ("softcap", "window", "wrapped-ring", "masked-row-in-tile",
+                 "fully-masked-call")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 2, 3, 80])
+@pytest.mark.parametrize("feature", ATTN_FEATURES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_features_match_plain_on_card(cuda, dtype, feature, Q):
+    """Q 1-2 at g = 4 take split-K decode, 3 and 80 the tiles (bf16) or
+    the CUDA-core kernel (float32)."""
+    B, H, KV, dh, K_ = 2, 8, 2, 64, 300
+    kw = {}
+    q_pos, k_pos = np.arange(K_ - Q, K_), np.arange(K_)
+    if feature == "softcap":
+        kw["softcap"] = 2.0
+    elif feature == "window":
+        kw["window"] = 50
+    elif feature == "wrapped-ring":
+        last = 1000
+        held = np.arange(last - K_ + 1, last + 1)
+        k_pos = np.empty(K_, np.int64)
+        k_pos[held % K_] = held
+        q_pos = np.arange(last - Q + 1, last + 1)
+        kw["window"] = 200
+    elif feature == "masked-row-in-tile":
+        # The first query precedes every key: no live key, beside rows of
+        # the same tile that have them.
+        q_pos = np.r_[-1, np.arange(K_ - Q + 1, K_)]
+    else:
+        k_pos = np.arange(K_) + 10 ** 6
+    q, k, v, qp, kp = _card_inputs(cuda, dtype, len(feature) + Q, B, Q, H,
+                                   KV, dh, K_, q_pos, k_pos)
+    got = _card_attention(q, k, v, qp, kp, **kw)
+    if feature in ("masked-row-in-tile", "fully-masked-call"):
+        # Every score of query 0 is -1e30: it averages v over all K keys.
+        uniform = v.float().mean(dim=1).repeat_interleave(H // KV, dim=1)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        torch.testing.assert_close(got[:, 0].float(), uniform, atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 80])
+@pytest.mark.parametrize("dh", [12, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_unpadded_head_dims_on_card(cuda, dtype, dh, Q):
+    """dh not a multiple of 8: split-K decode's element-wise loads (Q 1)
+    and the CUDA-core kernel, which takes such bf16 calls (Q 80)."""
+    B, H, KV, K_ = 1, 8, 2, 545
+    q_pos = np.r_[-1, np.arange(K_ - Q + 1, K_)]
+    q, k, v, qp, kp = _card_inputs(cuda, dtype, dh + Q, B, Q, H, KV, dh, K_,
+                                   q_pos, np.arange(K_))
+    _card_attention(q, k, v, qp, kp, window=300)
+
+
+def _at_odd_offset(t):
+    """A contiguous copy of ``t`` one element past an allocation's start:
+    not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_unaligned_views_on_card(cuda, dtype, Q):
+    """q, k and v at an odd element offset: split-K decode loads them
+    element-wise (Q 1); the tensor-core tiles refuse them, so bf16 at Q 80
+    takes the CUDA-core kernel."""
+    B, H, KV, dh, K_ = 1, 8, 2, 64, 300
+    q, k, v, qp, kp = _card_inputs(cuda, dtype, 7 + Q, B, Q, H, KV, dh, K_,
+                                   np.arange(K_ - Q, K_), np.arange(K_))
+    q, k, v = (_at_odd_offset(t) for t in (q, k, v))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in (q, k, v))
+    _card_attention(q, k, v, qp, kp, softcap=2.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("Q", [1, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_non_causal_on_card(cuda, dtype, Q, window):
+    """causal=False on every path (bf16 at Q 80 on the tensor-core tiles):
+    keys after a query stay live, a window still masks the old ones, and
+    the ragged last tile's keys past K still weigh 0."""
+    B, H, KV, dh, K_ = 2, 8, 2, 128, 545
+    q, k, v, qp, kp = _card_inputs(cuda, dtype, 11 + Q, B, Q, H, KV, dh, K_,
+                                   np.arange(200, 200 + Q), np.arange(K_))
+    _card_attention(q, k, v, qp, kp, causal=False, window=window)

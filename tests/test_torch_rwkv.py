@@ -436,6 +436,33 @@ def test_chip_smoke_profile_held_to_launch_counter():
         cs.profile_complete([rows[0], (1.0, 519, rms), rows[2]], launched)
     with pytest.raises(AssertionError, match="incomplete"):
         cs.profile_complete(rows[:2], launched)
+    # gemma's decode calls: each attention call is one split kernel and
+    # one merge kernel; a lost merge event fails as a lost split would.
+    split = ("void (anonymous namespace)::flash_attention_split_kernel<"
+             "__nv_bfloat16, 1>(...)")
+    merge = ("void (anonymous namespace)::flash_attention_merge_kernel<"
+             "__nv_bfloat16>(...)")
+    attn = [(1.0, 456, rms), (0.4, 224, split), (0.1, 224, merge)]
+    launched = {"multi_seed_rows": 0, "rmsnorm": 456, "flash_attention": 224,
+                "wkv6": 0}
+    assert cs.profile_complete(attn, launched) == {"rmsnorm": 456,
+                                                   "flash_attention": 224}
+    for bad in ([attn[0], attn[1], (0.1, 223, merge)], attn[:2],
+                [attn[0], (0.4, 223, split), attn[2]]):
+        with pytest.raises(AssertionError, match="incomplete"):
+            cs.profile_complete(bad, launched)
+    # The tensor-core and CUDA-core paths launch one kernel a call.
+    wg = "void (anonymous namespace)::flash_attention_wgmma_kernel<256>(...)"
+    simt = "void (anonymous namespace)::flash_attention_kernel<float>(...)"
+    launched = {"multi_seed_rows": 0, "rmsnorm": 0, "flash_attention": 5,
+                "wkv6": 0}
+    assert cs.profile_complete([(2.0, 3, wg), (1.0, 2, simt)],
+                               launched) == {"flash_attention": 5}
+    sc = cs.symbol_counts([(2.0, 3, wg), *attn])
+    assert sc["counts"] == {"flash_attention_wgmma_kernel": 3,
+                            "rmsnorm_kernel": 456,
+                            "flash_attention_split_kernel": 224,
+                            "flash_attention_merge_kernel": 224}
 
 
 def test_chip_smoke_rwkv_model_phases_rehearsed_on_cpu():

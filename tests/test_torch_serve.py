@@ -17,6 +17,7 @@ import pathlib
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_arch as ref_arch
 from repro.core import AutoAnalyzer as RefAnalyzer
@@ -215,14 +216,84 @@ def test_chip_smoke_kernel_phase_rehearsed_on_cpu():
     for name in cs.ATTN_CASES:
         errs = cs.check_attention(name, "cpu")
         assert errs["f32"] == 0.0 and errs["bf16"] <= cs.BF16_TOL
-    # gemma decode: k and v of the 545-slot cache dominate the bytes.
+    # gemma decode: k and v of the 273 written slots of the 545-slot cache
+    # dominate the bytes; the unwritten slots weigh 0 and are not read.
     ms, by = cs.attention_bound_ms("gemma-decode", 2)
-    nbytes = 2 * (2 * 16 * 256 + 2 * 545 * 16 * 256) + 4 * 546
+    nbytes = 2 * (2 * 16 * 256 + 2 * 273 * 16 * 256) + 4 * 546
     assert by == "bytes" and abs(ms - nbytes / 3.35e12 * 1e3) < 1e-12
     ms, by = cs.rmsnorm_bound_ms(256, 3072, 2)
     assert by == "bytes" and abs(ms - 3151872 / 3.35e12 * 1e3) < 1e-12
     c = cs.attention_case("danube-decode")
     assert c["k_pos"][904] == 5000 and c["k_pos"][905] == 905
+    # The first prefill chunk: positions 0..255, slots 256..544 unwritten;
+    # the bound counts only its live pairs (the causal triangle) and the k
+    # and v of its 256 live keys.
+    c = cs.attention_case("gemma-prefill-first")
+    assert list(c["q_pos"][[0, -1]]) == [0, 255]
+    assert (c["k_pos"][255], c["k_pos"][256]) == (255, cs.UNWRITTEN)
+    ms, by = cs.attention_bound_ms("gemma-prefill-first", 2)
+    nbytes = 2 * (2 * 256 * 16 * 256 + 2 * 256 * 16 * 256) + 4 * (256 + 545)
+    ops = 4 * 256 * 16 * (256 * 257 // 2)
+    assert by == "bytes" and abs(ms - nbytes / 3.35e12 * 1e3) < 1e-12
+    assert ops / 989e12 < nbytes / 3.35e12
+    # The path each case takes on the card, chosen from shapes alone.
+    assert {n: cs.attention_plan_of(n, torch.bfloat16).path
+            for n in cs.ATTN_CASES} == {
+        "gemma-decode": "split", "danube-decode": "split",
+        "gemma-prefill": "wgmma", "gemma-prefill-first": "wgmma",
+        "danube-prefill": "wgmma"}
+    assert cs.attention_plan_of("danube-prefill", torch.float32).path == \
+        "simt"
+
+
+def test_chip_smoke_attention_bound_reads_needed_keys():
+    cs = _chip_smoke()
+    live = np.array([[True, False, False], [True, True, False]])
+    assert cs.needed_keys(live) == 2
+    # A query with no live key averages v over every key: all K are read.
+    assert cs.needed_keys(np.array([[True, False, False],
+                                    [False, False, False]])) == 3
+    # gemma's second chunk reads the 512 written slots; danube's window
+    # keeps every slot of its ring live.
+    ms, by = cs.attention_bound_ms("gemma-prefill", 2)
+    nbytes = 2 * (2 * 256 * 16 * 256 + 2 * 512 * 16 * 256) + 4 * (256 + 545)
+    assert by == "bytes" and abs(ms - nbytes / 3.35e12 * 1e3) < 1e-12
+    ms, by = cs.attention_bound_ms("danube-decode", 2)
+    nbytes = 2 * (2 * 32 * 120 + 2 * 4096 * 8 * 120) + 4 * (1 + 4096)
+    assert by == "bytes" and abs(ms - nbytes / 3.35e12 * 1e3) < 1e-12
+
+
+@pytest.mark.parametrize("tick,sample_cpu,ok", [
+    (0.01, 0.0, True),       # a 2.56 ms phase under a 10 ms tick: reduced
+    (1e-6, 0.0, False),      # a fine clock: the raw reading must be > 0
+    (None, 0.0, False),      # no tick recorded: raw
+    (1e-6, 1e-5, True),
+])
+def test_chip_smoke_phase_times_read_raw_where_the_tick_allows(
+        tick, sample_cpu, ok):
+    from repro_torch.core import CPU_TIME, WALL_TIME, RegionTrace
+    from repro_torch.serve.engine import serve_region_tree
+    cs = _chip_smoke()
+    tree = serve_region_tree()
+    ids = [r.region_id for r in tree.regions()]
+    trace = RegionTrace.for_tree(tree, ids, n_processes=2, n_steps=128,
+                                 metrics=(WALL_TIME, CPU_TIME),
+                                 meta={"cpu_tick": tick})
+    trace.metric(WALL_TIME)[:] = 1e-5
+    trace.metric(CPU_TIME)[:] = 1.0
+    j = trace.col(tree.by_path("serve/sample").region_id)
+    trace.metric(CPU_TIME)[..., j] = sample_cpu
+    phases = ("prefill", "decode", "sample")
+    if ok:
+        cs.check_phase_times(trace, tree, phases)
+    else:
+        with pytest.raises(AssertionError, match="serve/sample is 0.0"):
+            cs.check_phase_times(trace, tree, phases)
+    # A phase long enough to span RAW_CPU_TICKS ticks is read raw.
+    trace.metric(WALL_TIME)[..., j] = 1.0
+    trace.metric(CPU_TIME)[..., j] = 0.0
+    with pytest.raises(AssertionError, match="raw"):
+        cs.check_phase_times(trace, tree, phases)
 
 
 def test_chip_smoke_model_phases_rehearsed_on_cpu():
