@@ -24,15 +24,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. fleet: a 16384-shard x 128-region trace with a 2048-shard compute
    straggler and an I/O hotspot, saved, loaded and analyzed on the kernel
    lane and on the exact numpy lane; the two verdicts must be equal;
-6. serving kernels vs plain: RMSNorm at (1, 3072), (256, 3072) and
-   (300, 3840) and attention at gemma-7b's decode, its first 256-token
+6. serving kernels vs plain: RMSNorm at gemma-7b's and rwkv6-3b's decode
+   rows (1, 3072) and (1, 2560), the prefill chunk (256, 3072), (300,
+   3840), a d that is not a multiple of 8 (3, 3004) and an unaligned view
+   (4, 2560) at one element's offset, with the path each takes, and attention at gemma-7b's decode, its first 256-token
    prefill chunk (positions 0..255, slots 256.. unwritten: key tiles
    skipped) and its second, over a 545-slot cache, and at danube's GQA
    with a 4096 window over a wrapped 4096-slot ring, each in float32
    (tolerance 2e-5) and bf16 (3e-2 against the float32 plain version);
    the path each attention case takes; CUDA-event and profiler times
-   beside the plain version, one library call (per-call and device time)
-   and the bound;
+   beside the plain version, one library call (per-call and device time;
+   for RMSNorm also ``F.rms_norm`` on the bf16 rows themselves) and the
+   bound;
 7. model parity: gemma-7b's full width cut to 2 layers, float32, seeded
    weights on the host and a copy on the card; a 16-token prefill chunk
    and 4 greedy decode steps on each; logits within 1e-4 of their scale,
@@ -43,7 +46,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    attentions; one lane's decode call profiled; the served trace
    analyzed on the kernel and numpy lanes with equal verdicts;
 9. WKV-6 kernel vs plain: rwkv6-3b's decode shape (B=1, T=1, H=40,
-   dh=64) from a non-zero state, T = 64, T = 512 (the reference's
+   dh=64) from a non-zero state on the decode kernel, and on the
+   sequential kernel T = 64, T = 512 (the reference's
    chunked threshold, where the output is rounded to r's dtype) and a
    ragged (2, 100, 4, 16); decays of the model's form and long-memory
    ones; float32 and bf16 r/k/v; output and final state within 2e-5 of
@@ -55,8 +59,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 11. serving: rwkv6-3b FULL in bf16 through ``repro_torch.launch.serve``
    (4 lanes, 8 requests of 64 prompt tokens, 16 generated, one token per
    call), every model call launching 65 RMSNorms and 32 WKV-6s; one
-   lane's decode call profiled; the served trace analyzed on both lanes
-   with equal verdicts.
+   lane's decode call profiled (its RMSNorms on the row-per-block kernel,
+   its WKV-6s on the decode kernel); the served trace analyzed on both
+   lanes with equal verdicts.
 
 Phases 4, 5, 8 and 11 count the kernels' launches from 0 and fail if the
 main path never launched them.  The last two lines of standard output
@@ -69,6 +74,7 @@ without a card.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import pathlib
 import re
@@ -100,15 +106,21 @@ TPU_KERNELS = {"rmsnorm": "src/repro/kernels/rmsnorm.py:23",
                "flash_attention": "src/repro/kernels/flash_attention.py:84",
                "wkv6": "src/repro/kernels/rwkv6_scan.py:69"}
 # The CUDA symbols of each ported kernel.  Every wrapper call launches one
-# of its entry kernels; the attention's split-K decode path then launches
-# its merge kernel (FOLLOWERS: follower -> the entry it follows).
+# of its entry kernels (one per path of the kernel's plan); the attention's
+# split-K decode path then launches its merge kernel (FOLLOWERS: follower
+# -> the entry it follows).
 ENTRY_SYMBOLS = {
     "multi_seed_rows": ("multi_seed_rows_kernel",),
-    "rmsnorm": ("rmsnorm_kernel",),
+    "rmsnorm": ("rmsnorm_row_kernel", "rmsnorm_rows_kernel",
+                "rmsnorm_kernel"),
     "flash_attention": ("flash_attention_split_kernel",
                         "flash_attention_wgmma_kernel",
                         "flash_attention_kernel"),
-    "wkv6": ("wkv6_kernel",)}
+    "wkv6": ("wkv6_decode_kernel", "wkv6_kernel")}
+# The entry kernel each decode call of the served models must run: one
+# token per call is the row-per-block RMSNorm and the decode WKV-6.
+DECODE_SYMBOLS = {"rmsnorm": "rmsnorm_row_kernel",
+                  "wkv6": "wkv6_decode_kernel"}
 FOLLOWERS = {"flash_attention_merge_kernel": "flash_attention_split_kernel"}
 
 
@@ -325,11 +337,15 @@ def time_kernel(m: int, n: int, k: int) -> dict:
     from repro_torch.kernels import distance as D
     pts, sq, idx = kernel_inputs(m, n, k, "cuda")
     b_ms, b_by = bound_ms(m, n, k)
+
+    def library():
+        return library_rows(pts, sq, idx)
     return {
         "ms": cuda_ms(lambda: D.multi_seed_rows(pts, sq, idx), 200),
         "plain_ms": cuda_ms(lambda: D.multi_seed_rows_ref(pts, sq, idx),
                             max(3, 200 // k)),
-        "library_ms": cuda_ms(lambda: library_rows(pts, sq, idx), 200),
+        "library_ms": cuda_ms(library, 200),
+        "library_device_ms": library_device_ms(library),
         "bound_ms": b_ms, "bound_by": b_by,
         "device_ms": device_ms(lambda: D.multi_seed_rows(pts, sq, idx),
                                "multi_seed_rows"),
@@ -457,17 +473,26 @@ def fleet_phase(m: int, n: int, straggler_procs: int, device) -> dict:
 # -- phase 6 ---------------------------------------------------------------
 
 # The serving path's shapes (gemma-7b FULL, bf16, at --prompt-len 512
-# --chunk 256 --gen 32: a 545-slot cache) and danube's GQA + window.
+# --chunk 256 --gen 32: a 545-slot cache; rwkv6-3b's d = 2560) and
+# danube's GQA + window.
 RMS_EPS = 1e-6
-RMS_SHAPES = ((1, 3072), (256, 3072), (300, 3840))
+# (N, d, offset): the rows start ``offset`` elements into their buffer.
+# The decode rows of gemma-7b and rwkv6-3b and the prefill chunk, a wider
+# d over more rows, a d that is not a multiple of 8 (the scalar path in
+# bf16, a vector path in float32) and an unaligned view (the scalar path).
+RMS_SHAPES = ((1, 3072, 0), (1, 2560, 0), (256, 3072, 0), (300, 3840, 0),
+              (3, 3004, 0), (4, 2560, 1))
+# Timed in bf16: the shapes the served models launch, and (300, 3840).
+RMS_TIMED = ((1, 3072), (1, 2560), (256, 3072), (300, 3840))
 GEMMA_SLOTS = 545
 UNWRITTEN = 2 ** 30
 ATTN_CASES = ("gemma-decode", "gemma-prefill", "danube-decode",
               "danube-prefill", "gemma-prefill-first")
 # The main path launches the decode shapes most (57 and 28 launches per
 # decode call, 8 x 32 decode calls against 16 prefill chunks); those go
-# into the machine-readable kernels line, the prefill shapes beside them.
-RMS_MAIN, RMS_PREFILL = (1, 3072), (256, 3072)
+# into the machine-readable kernels line, the prefill shapes beside them
+# (and rwkv6-3b's decode rows beside gemma-7b's).
+RMS_MAIN, RMS_PREFILL, RMS_RWKV = (1, 3072), (256, 3072), (1, 2560)
 ATTN_MAIN, ATTN_PREFILL = "gemma-decode", "gemma-prefill"
 # Tolerances of the kernels against their plain versions, |got - want| <=
 # tol + tol * |want| per element: float32 at the reference kernel tests'
@@ -514,14 +539,16 @@ def attention_shape(name: str) -> list:
     return [1, len(c["q_pos"]), c["H"], c["KV"], c["dh"], len(c["k_pos"])]
 
 
-def rmsnorm_inputs(n: int, d: int, dtype, device):
+def rmsnorm_inputs(n: int, d: int, dtype, device, offset: int = 0):
+    """Seeded x (N, d) and w (d,); x is a contiguous view ``offset``
+    elements into a flat buffer (unaligned for an offset of 1)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(7919 * n + d)
-    x = 2.0 * rng.standard_normal((n, d)) + 0.5
+    x = 2.0 * rng.standard_normal(n * d + offset) + 0.5
     w = 0.1 * rng.standard_normal(d)
-    return (torch.as_tensor(x, dtype=dtype, device=device),
-            torch.as_tensor(w, dtype=dtype, device=device))
+    return (torch.as_tensor(x, dtype=dtype, device=device)[offset:]
+            .view(n, d), torch.as_tensor(w, dtype=dtype, device=device))
 
 
 def attention_inputs(name: str, dtype, device):
@@ -554,19 +581,27 @@ def _close(got, want, tol: float, what: str) -> float:
     return float(err.max())
 
 
-def check_rmsnorm(n: int, d: int, device) -> dict:
+def rmsnorm_plan_of(n: int, d: int, dtype, offset: int = 0):
+    """The kernel path :func:`rmsnorm_plan` picks for one case (an offset
+    view is unaligned; buffers from the allocator are aligned)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_plan
+    return rmsnorm_plan(n, d, dtype, aligned=offset == 0)
+
+
+def check_rmsnorm(n: int, d: int, device, offset: int = 0) -> dict:
     """The kernel against its plain version, float32 and bf16."""
     import torch
     from repro_torch import kernels as K
     errs = {}
     for dtype, tol, tag in ((torch.float32, F32_TOL, "f32"),
                             (torch.bfloat16, BF16_TOL, "bf16")):
-        x, w = rmsnorm_inputs(n, d, dtype, device)
+        x, w = rmsnorm_inputs(n, d, dtype, device, offset)
         got = K.rmsnorm(x, w, RMS_EPS)
         want = K.rmsnorm_ref(x.float(), w.float(), RMS_EPS)
         if got.dtype != dtype or got.shape != x.shape:
             raise AssertionError(f"rmsnorm gave {got.dtype} {got.shape}")
-        errs[tag] = _close(got, want, tol, f"rmsnorm ({n}, {d}) {tag}")
+        errs[tag] = _close(got, want, tol,
+                           f"rmsnorm ({n}, {d}) offset {offset} {tag}")
     return errs
 
 
@@ -630,26 +665,75 @@ def attention_bound_ms(name: str, itemsize: int) -> tuple:
 
 
 def time_rmsnorm(n: int, d: int) -> dict:
-    """bf16 (the served dtype): the kernel, its plain version and one
-    library call, ``F.rms_norm`` on float32 copies with weight 1 + w
-    (timed only)."""
+    """bf16 (the served dtype): the kernel, its plain version and two
+    library calls (timed only): ``F.rms_norm`` on float32 copies with
+    weight 1 + w (the function's float32 arithmetic; per call and device
+    time), and ``F.rms_norm`` on the bf16 rows with weight (1 + w) rounded
+    to bf16 (the bytes the kernel moves; device time).  Beside them the
+    scalar path (the one-block-per-row kernel of PR 12) forced on the same
+    rows, the redesign's gain measured in the same run, and one PyTorch
+    copy of x into a tensor of its shape (device time): what the card
+    takes in practice to read x and write y, with no arithmetic."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
     x, w = rmsnorm_inputs(n, d, torch.bfloat16, "cuda")
+    out = torch.empty_like(x)
+    scalar = RN.RmsnormPlan("scalar", RN.SCALAR_THREADS, 0, 1)
     xf, w1 = x.float(), 1.0 + w.float()
+    w1b = (1.0 + w).to(x.dtype)
     b_ms, b_by = rmsnorm_bound_ms(n, d, 2)
 
     def library():
         return F.rms_norm(xf, (d,), w1, RMS_EPS)
+
+    def library_bf16():
+        return F.rms_norm(x, (d,), w1b, RMS_EPS)
     return {
         "ms": cuda_ms(lambda: K.rmsnorm(x, w, RMS_EPS), 200),
         "device_ms": device_ms(lambda: K.rmsnorm(x, w, RMS_EPS), "rmsnorm"),
         "plain_ms": cuda_ms(lambda: K.rmsnorm_ref(x, w, RMS_EPS), 200),
         "library_ms": cuda_ms(library, 200),
         "library_device_ms": library_device_ms(library),
+        "library_bf16_device_ms": library_device_ms(library_bf16),
+        "scalar_device_ms": device_ms(
+            lambda: RN._launch(x, w, out, RMS_EPS, scalar), "rmsnorm"),
+        "copy_device_ms": library_device_ms(lambda: out.copy_(x)),
         "bound_ms": b_ms, "bound_by": b_by,
+        "plan": rmsnorm_plan_of(n, d, torch.bfloat16)._asdict(),
     }
+
+
+# The shapes at which phase 6 times every vector plan of RMSNorm (the
+# evidence for rmsnorm_plan's choice): the decode row and two row counts
+# above SMS.
+RMS_SWEEP = ((1, 3072), (256, 3072), (300, 3840))
+
+
+def rmsnorm_sweep(n: int, d: int) -> dict:
+    """bf16 device time per call of every vector plan that covers (n, d):
+    items of 1, 2 and 4 vectors a thread, and 1 (the row path), 2, 4 or 8
+    rows a block (the rows path, where the block and the staged w fit)."""
+    import torch
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+    x, w = rmsnorm_inputs(n, d, torch.bfloat16, "cuda")
+    out = torch.empty_like(x)
+    nv = d * 2 // RN.VEC_BYTES
+    res = {}
+    for items in RN.ITEMS:
+        threads = -(-(-(-nv // items)) // 32) * 32
+        for rows in (1, 2, 4, 8):
+            if threads > RN.MAX_THREADS or rows > 1 and (
+                    threads * rows > RN.MAX_THREADS
+                    or 2 * d > RN.MAX_STAGED_W):
+                continue
+            plan = RN.RmsnormPlan("row" if rows == 1 else "rows", threads,
+                                  items, rows)
+            res[f"{plan.path} rows={rows} threads={threads} items={items}"] \
+                = device_ms(lambda: RN._launch(x, w, out, RMS_EPS, plan),
+                            "rmsnorm")
+    return res
 
 
 def attention_plan_of(name: str, dtype):
@@ -955,7 +1039,9 @@ def decode_breakdown(backend,
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     profiled = profile_complete(rows, launched)
-    times = symbol_counts(rows)["times"]
+    sc = symbol_counts(rows)
+    check_decode_symbols(sc["counts"], launched)
+    times = sc["times"]
     ported = {n: sum(times.get(sym, 0.0) for sym in _symbols(n)) / steps
               / 1e3 for n, c in launched.items() if c}
     return {"wall_ms": wall / steps * 1e3, "busy_ms": busy / steps * 1e3,
@@ -964,6 +1050,7 @@ def decode_breakdown(backend,
             "launches": sum(r[1] for r in rows) / steps,
             "profiled_launches": profiled,
             "counted_launches": {n: c for n, c in launched.items() if c},
+            "symbols": sc["counts"],
             "top": [(t / steps / 1e3, c // steps, key[:90])
                     for t, c, key in rows[:10]]}
 
@@ -991,6 +1078,18 @@ def profile_complete(rows, launched: dict) -> dict:
     return {n: c for n, c in profiled.items() if c}
 
 
+def check_decode_symbols(counts: dict, launched: dict) -> None:
+    """Every launch of a kernel in DECODE_SYMBOLS over decode calls went
+    through its decode entry kernel (``counts``: profiled launches per
+    CUDA symbol; ``launched``: the launch counter's delta)."""
+    for name, sym in DECODE_SYMBOLS.items():
+        if launched.get(name) and counts.get(sym, 0) != launched[name]:
+            raise AssertionError(
+                f"{name}: {counts.get(sym, 0)} of the decode calls' "
+                f"{launched[name]} launches ran {sym}; the profiler lists "
+                f"{ {s: c for s, c in counts.items() if s in _symbols(name)} }")
+
+
 def log_breakdown(phase: str, bd: dict) -> None:
     log(f"[{phase}] one lane's decode call (torch.profiler, CUDA only): "
         f"host wall {bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} "
@@ -1004,7 +1103,8 @@ def log_breakdown(phase: str, bd: dict) -> None:
     log(f"[{phase}] ported kernels' launches over the "
         f"{DECODE_PROFILE_STEPS} profiled calls: profiler "
         f"{bd['profiled_launches']}, launch counter "
-        f"{bd['counted_launches']} (held equal)")
+        f"{bd['counted_launches']} (held equal); by CUDA symbol "
+        f"{bd['symbols']}")
 
 
 # -- phase 9 ---------------------------------------------------------------
@@ -1095,8 +1195,8 @@ def wkv6_bound_ms(B: int, T: int, H: int, dh: int, itemsize: int) -> tuple:
     float32 operations that the function needs per (token, head), at the
     rate outside the tensor cores: r·S, dh² fused multiply-adds (2·dh²),
     and the state update w_i·S_ij + k_i·v_j (3·dh²), so 5·dh².  The bonus
-    term factors as (Σ_i r_i·u_i·k_i)·v_j, O(dh); the kernel spends 7·dh²
-    because it does not factor it."""
+    term factors as (Σ_i r_i·u_i·k_i)·v_j, O(dh), as the decode kernel
+    computes it."""
     n = B * T * H * dh
     nbytes = 3 * itemsize * n + 4 * n + 4 * H * dh + 8 * B * H * dh * dh \
         + 4 * n
@@ -1106,24 +1206,42 @@ def wkv6_bound_ms(B: int, T: int, H: int, dh: int, itemsize: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def wkv6_plan_of(name: str, dtype):
+    """The kernel :func:`wkv6_plan` picks for one case."""
+    from repro_torch.kernels.wkv6 import wkv6_plan
+    B, T, H, dh, _ = WKV_CASES[name]
+    return wkv6_plan(B, T, H, dh, dtype)
+
+
 def time_wkv6(name: str) -> dict:
     """bf16 r/k/v (the served dtype), the model's decays: the kernel and
     its plain version.  No single PyTorch call computes WKV-6, so there is
-    no library time.  The state evolves in place from call to call."""
+    no library time.  The state evolves in place from call to call.  At
+    T = 1 also the sequential kernel (PR 13's, the decode kernel's
+    predecessor) forced on the same inputs."""
     import torch
     from repro_torch import kernels as K
+    WK = importlib.import_module("repro_torch.kernels.wkv6")
     r, k, v, w, u, S = wkv6_inputs(name, "model", torch.bfloat16, "cuda")
     B, T, H, dh, _ = WKV_CASES[name]
     b_ms, b_by = wkv6_bound_ms(B, T, H, dh, 2)
 
     def kernel():
         return K.wkv6(r, k, v, w, u, S)
+    extra = {}
+    if T == 1:
+        seq = WK.wkv6_plan(B, 2, H, dh, r.dtype)
+        out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+        extra["sequential_device_ms"] = device_ms(
+            lambda: WK._launch(r, k, v, w, u, S, out, False, seq), "wkv6")
     return {
+        **extra,
         "ms": cuda_ms(kernel, 200),
         "device_ms": device_ms(kernel, "wkv6"),
         "plain_ms": cuda_ms(lambda: K.wkv6_ref(r, k, v, w, u, S),
                             max(3, 100 // T)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "plan": wkv6_plan_of(name, torch.bfloat16)._asdict(),
     }
 
 
@@ -1176,7 +1294,8 @@ def main() -> int:
             f"{err['max_abs_err_f64']:.6g} (at most "
             f"{err['max_ratio_f64']:.3f}; tolerance {C_F64}); kernel "
             f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, library "
-            f"{t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+            f"{t['library_ms']:.6f} ms (device {t['library_device_ms']:.6f} "
+            f"ms), bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}); kernel device time (profiler) "
             f"{t['device_ms']} ms; batched == per-seed bitwise")
 
@@ -1201,17 +1320,29 @@ def main() -> int:
         log(f"    {cum:10.4f} {calls:8d}  {name}")
 
     # 6. the serving path's kernels vs plain, float32 and bf16
-    rms_err, rms_t = {}, {}
-    for n, d in RMS_SHAPES:
-        rms_err[(n, d)] = check_rmsnorm(n, d, "cuda")
-        rms_t[(n, d)] = t = time_rmsnorm(n, d)
-        log(f"[6] rmsnorm ({n}, {d}): max|kernel-plain| f32 "
-            f"{rms_err[(n, d)]['f32']:.6g} (tolerance {F32_TOL}), bf16 "
-            f"{rms_err[(n, d)]['bf16']:.6g} (tolerance {BF16_TOL}); bf16 "
-            f"kernel {t['ms']:.6f} ms per call, device {t['device_ms']} ms,"
-            f" plain {t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} "
-            f"ms per call, device {t['library_device_ms']:.6f} ms, bound "
-            f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    rms_err, rms_t, rms_paths = {}, {}, {}
+    for n, d, off in RMS_SHAPES:
+        rms_err[(n, d, off)] = e = check_rmsnorm(n, d, "cuda", off)
+        rms_paths[f"{n}x{d}+{off}"] = paths = {
+            tag: rmsnorm_plan_of(n, d, dt, off).path
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        msg = ""
+        if off == 0 and (n, d) in RMS_TIMED:
+            rms_t[(n, d)] = t = time_rmsnorm(n, d)
+            msg = (f"; bf16 kernel {t['ms']:.6f} ms per call, device "
+                   f"{t['device_ms']} ms, plain {t['plain_ms']:.6f} ms, "
+                   f"library (float32 copies) {t['library_ms']:.6f} ms per "
+                   f"call, device {t['library_device_ms']:.6f} ms, library "
+                   f"(bf16) device {t['library_bf16_device_ms']:.6f} ms, "
+                   f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}); bf16 "
+                   f"plan {t['plan']}")
+        log(f"[6] rmsnorm ({n}, {d}) at offset {off}: paths {paths}; "
+            f"max|kernel-plain| f32 {e['f32']:.6g} (tolerance {F32_TOL}), "
+            f"bf16 {e['bf16']:.6g} (tolerance {BF16_TOL})" + msg)
+    rms_sweep = {f"{n}x{d}": rmsnorm_sweep(n, d) for n, d in RMS_SWEEP}
+    for shape, res in rms_sweep.items():
+        log(f"[6] rmsnorm {shape} bf16, device ms per call of each vector "
+            f"plan: {json.dumps(res)}")
     attn_err, attn_t = {}, {}
     for name in ATTN_CASES:
         attn_err[name] = check_attention(name, "cuda")
@@ -1262,6 +1393,9 @@ def main() -> int:
     wkv_err, wkv_t = {}, {}
     for name in WKV_CASES:
         wkv_err[name] = e = check_wkv6(name, "cuda")
+        path = wkv6_plan_of(name, torch.bfloat16).path
+        if path != ("decode" if name == WKV_MAIN else "sequential"):
+            raise AssertionError(f"wkv6 {name} takes the {path} kernel")
         msg = ""
         if name in (WKV_MAIN, WKV_LONG):
             wkv_t[name] = t = time_wkv6(name)
@@ -1269,8 +1403,8 @@ def main() -> int:
                    f"{t['device_ms']} ms, plain {t['plain_ms']:.6f} ms, "
                    f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), no "
                    f"library call")
-        log(f"[9] wkv6 {name} (B, T, H, dh, state) = {WKV_CASES[name]}: "
-            f"max|kernel-plain| f32 {e['f32']:.6g}, bf16 {e['bf16']:.6g}; "
+        log(f"[9] wkv6 {name} (B, T, H, dh, state) = {WKV_CASES[name]}, "
+            f"{path} kernel: max|kernel-plain| f32 {e['f32']:.6g}, bf16 {e['bf16']:.6g}; "
             f"largest error over scale {e['rel']:.3g} (tolerance {WKV_TOL})"
             + msg)
 
@@ -1307,6 +1441,7 @@ def main() -> int:
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
+        "library_device_ms": main_t["library_device_ms"],
         "device_ms": main_t["device_ms"], "shape": list(MAIN_PATH_SHAPE),
         "corpus_launches": corpus["launches"],
         "serve_trace_launches": served["analysis_launches"],
@@ -1335,6 +1470,10 @@ def main() -> int:
                      for name in ATTN_CASES}
     rms = next(kd for kd in kernels if kd["name"] == "rmsnorm")
     rms["launches_rwkv6_serve"] = rserved["launches"]["rmsnorm"]
+    rms["library_bf16_device_ms"] = rms_t[RMS_MAIN]["library_bf16_device_ms"]
+    rms["rwkv_decode"] = {"shape": list(RMS_RWKV), **rms_t[RMS_RWKV]}
+    rms["paths"] = rms_paths
+    rms["plan_sweep"] = rms_sweep
     t = wkv_t[WKV_MAIN]
     kernels.append({
         "name": "wkv6", "route": "cuda",

@@ -5,20 +5,85 @@ plain PyTorch version.
 
 accumulated in float32 and rounded once to x's dtype, as the reference's
 ``models/layers.py::rms_norm`` does.  :func:`rmsnorm` launches the
-hand-written kernel ``csrc/rmsnorm.cu`` (the port of the reference's
+hand-written kernels of ``csrc/rmsnorm.cu`` (the port of the reference's
 Pallas kernel ``repro/kernels/rmsnorm.py::rmsnorm``; the source states its
 bound and design) on a CUDA tensor, or raises; only tensors on the CPU
-take the plain version :func:`rmsnorm_ref`.
+take the plain version :func:`rmsnorm_ref`.  :func:`rmsnorm_plan` picks
+the kernel's path from the shapes and the pointers' alignment alone: a
+block per row with 16-byte loads of x and w issued together (at most
+``SMS`` rows: the decode shapes), several rows per block above that (the
+prefill chunk), and a scalar kernel for a d that is not a multiple of 16
+bytes or an unaligned pointer.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import LAUNCHES
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# The plan's constants; MAX_THREADS, ITEMS, MAX_ROWS and MAX_STAGED_W are
+# also the bounds that csrc/rmsnorm.cu's launch checks.
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+VEC_BYTES = 16            # one load or store of a vector path's thread
+MAX_THREADS = 1024
+ITEMS = (1, 2, 4)         # vectors of a row a thread may own
+MAX_ROWS = 8
+MAX_STAGED_W = 48 * 1024  # bytes of w the rows path stages per block
+ROWS_PER_BLOCK = 2        # the rows path's rows per block
+SCALAR_THREADS = 256
+PATHS = {"scalar": 0, "row": 1, "rows": 2}
+
+
+class RmsnormPlan(NamedTuple):
+    """How one call runs on the card, as the wrapper passes it to the
+    kernel.
+
+    path : "row" (a block per row), "rows" (``rows`` rows per block, w
+        staged once per block) or "scalar".
+    threads : threads on each row of a block.
+    items : 16-byte vectors of a row each thread owns, at vector indices
+        thread + i * threads (0 on the scalar path, which strides).
+    rows : rows per block.
+    """
+    path: str
+    threads: int
+    items: int
+    rows: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def rmsnorm_plan(n: int, d: int, dtype: torch.dtype,
+                 aligned: bool = True) -> RmsnormPlan:
+    """The kernel path of one call, from its shapes and whether x, w and y
+    are 16-byte aligned.
+
+    A d that is a multiple of 16 bytes of elements, with aligned pointers,
+    takes a vector path: each thread owns ``items`` vectors (the fewest of
+    ``ITEMS`` that keep a row within ``MAX_THREADS`` threads) and a row
+    d / 16 bytes / items threads, rounded up to a warp.  Up to ``SMS`` rows
+    take a block each; more take ``ROWS_PER_BLOCK`` rows a block with w
+    staged once per block, where the block and w fit.  Everything else,
+    and rows longer than 4 * MAX_THREADS vectors, the scalar kernel.
+    """
+    vec = VEC_BYTES // dtype.itemsize
+    nv = d // vec
+    if aligned and d % vec == 0:
+        for items in ITEMS:
+            if _cdiv(nv, items) <= MAX_THREADS:
+                threads = _cdiv(_cdiv(nv, items), 32) * 32
+                if (n > SMS and threads * ROWS_PER_BLOCK <= MAX_THREADS
+                        and d * dtype.itemsize <= MAX_STAGED_W):
+                    return RmsnormPlan("rows", threads, items, ROWS_PER_BLOCK)
+                return RmsnormPlan("row", threads, items, 1)
+    return RmsnormPlan("scalar", SCALAR_THREADS, 0, 1)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -50,9 +115,9 @@ def _kernel_fn(dtype: torch.dtype):
     from .build import load_library
     fn = getattr(load_library("rmsnorm").lib, f"rmsnorm_{DTYPES[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -64,8 +129,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     w : (d,) in x's dtype.
     Returns (N, d) in x's dtype.
 
-    On CUDA one launch of ``csrc/rmsnorm.cu`` on the current stream; on
-    the CPU :func:`rmsnorm_ref`.
+    On CUDA one launch of ``csrc/rmsnorm.cu`` on the current stream, on
+    the path :func:`rmsnorm_plan` picks; on the CPU :func:`rmsnorm_ref`.
     """
     _check(x, w)
     if x.device.type == "cpu":
@@ -76,13 +141,22 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     out = torch.empty_like(x)
     if n == 0 or d == 0:
         return out
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x, w, out))
+    _launch(x, w, out, eps, rmsnorm_plan(n, d, x.dtype, aligned))
+    return out
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, eps: float,
+            plan: RmsnormPlan) -> None:
+    """One launch of the kernel on ``plan``'s path into ``out``."""
+    n, d = x.shape
     fn = _kernel_fn(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, d,
-                    float(eps), stream)
+                    float(eps), PATHS[plan.path], plan.threads, plan.items,
+                    plan.rows, stream)
     if status != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error "
-                           f"{status} (N={n}, d={d}, {x.dtype})")
+                           f"{status} (N={n}, d={d}, {x.dtype}, {plan})")
     LAUNCHES["rmsnorm"] += 1
-    return out

@@ -6,10 +6,14 @@ Per batch row b and head h, with the (dh x dh) float32 state S:
     out_t = r_t · (S + (u ⊙ k_t) v_tᵀ)
     S     ← diag(w_t) S + k_t v_tᵀ
 
-:func:`wkv6` launches the hand-written kernel ``csrc/wkv6.cu`` (the port
-of the reference's Pallas kernel ``repro/kernels/rwkv6_scan.py::wkv6``;
+:func:`wkv6` launches the hand-written kernels of ``csrc/wkv6.cu`` (the
+port of the reference's Pallas kernel ``repro/kernels/rwkv6_scan.py::wkv6``;
 the source states its bound and design) on CUDA tensors, or raises; only
 tensors on the CPU take the plain version :func:`wkv6_ref`.
+:func:`wkv6_plan` picks the kernel from the shapes alone: at T = 1 (every
+call of the served path) the decode kernel, which spreads the state over
+(head, column tile) blocks and reads it in 16-byte words; above that the
+sequential kernel, one block per head looping over the tokens.
 
 Beyond the Pallas kernel, which starts from S = 0, takes T in multiples
 of its chunk and returns no state, the model path needs: an initial state
@@ -23,7 +27,7 @@ then widens it again (``:166``); the wrapper does the same.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +38,54 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # (models/rwkv.py:158).
 CHUNKED_T = 512
 MAX_HEAD_DIM = 128
+# The decode kernel's partition (csrc/wkv6.cu): a block owns COL_TILE
+# columns of one head's S, a thread ROWS_PER_THREAD rows of them.
+COL_TILE = 16
+ROWS_PER_THREAD = 4
+PATHS = {"sequential": 0, "decode": 1}
+
+
+class Wkv6Plan(NamedTuple):
+    """How one call runs on the card, as the wrapper passes it to the
+    kernel.
+
+    path : "decode" (T = 1) or "sequential".
+    vec : columns of S per decode thread: 4 (one float4) or 1 (the scalar
+        column path); 0 for "sequential".
+    tiles : column tiles per head, the decode grid's second axis (the
+        sequential kernel runs one block per head: 1).
+    threads : threads per block.
+    """
+    path: str
+    vec: int
+    tiles: int
+    threads: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wkv6_plan(B: int, T: int, H: int, dh: int, dtype: torch.dtype,
+              aligned: bool = True) -> Wkv6Plan:
+    """The kernel of one call, from its shapes (and whether S is 16-byte
+    aligned).
+
+    T = 1 takes the decode kernel over B * H * ``tiles`` blocks of
+    ``COL_TILE`` columns: (dh / ROWS_PER_THREAD) row slices times
+    COL_TILE / vec column groups of threads, rounded up to whole warps,
+    vec = 4 where dh is a multiple of 4 and S aligned, else 1.  Longer
+    calls take the sequential kernel, one block per head of the smallest
+    of 32, 64 and 128 threads that covers dh.  ``B``, ``H`` and ``dtype``
+    do not change the choice.
+    """
+    if T == 1:
+        vec = 4 if dh % 4 == 0 and aligned else 1
+        slices = _cdiv(dh, ROWS_PER_THREAD)
+        return Wkv6Plan("decode", vec, _cdiv(dh, COL_TILE),
+                        _cdiv(COL_TILE // vec * slices, 32) * 32)
+    threads = next(n for n in (32, 64, 128) if n >= dh)
+    return Wkv6Plan("sequential", 0, 1, threads)
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,7 +149,7 @@ def _kernel_fn(dtype: torch.dtype):
     from .build import load_library
     fn = getattr(load_library("wkv6").lib, f"wkv6_{DTYPES[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -116,8 +168,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns out (B, T, H, dh) float32; from CHUNKED_T tokens on, its
     values are rounded to r's dtype, as the reference's chunked form does.
 
-    On CUDA one launch of ``csrc/wkv6.cu`` on the current stream; on the
-    CPU :func:`wkv6_ref`.
+    On CUDA one launch of ``csrc/wkv6.cu`` on the current stream, of the
+    kernel :func:`wkv6_plan` picks; on the CPU :func:`wkv6_ref`.
     """
     _check(r, k, v, w, u, S)
     B, T, H, dh = r.shape
@@ -129,14 +181,24 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type != "cuda":
         raise ValueError(f"no kernel for device {r.device}")
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    plan = wkv6_plan(B, T, H, dh, r.dtype, S.data_ptr() % 16 == 0)
+    _launch(r, k, v, w, u, S, out, round_out, plan)
+    return out
+
+
+def _launch(r, k, v, w, u, S, out, round_out: bool, plan: Wkv6Plan) -> None:
+    """One launch of ``plan``'s kernel, updating ``S`` and writing
+    ``out``."""
+    B, T, H, dh = r.shape
     fn = _kernel_fn(r.dtype)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     u.data_ptr(), S.data_ptr(), out.data_ptr(), B, T, H, dh,
-                    int(round_out), stream)
+                    int(round_out), PATHS[plan.path], plan.vec, plan.tiles,
+                    plan.threads, stream)
     if status != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {status} "
-                           f"(B={B}, T={T}, H={H}, dh={dh}, {r.dtype})")
+                           f"(B={B}, T={T}, H={H}, dh={dh}, {r.dtype}, "
+                           f"{plan})")
     LAUNCHES["wkv6"] += 1
-    return out

@@ -10,6 +10,7 @@ probabilities in float32 where naive_attention rounds them to v's dtype
 before P·V).  Tests marked ``gpu`` hold the CUDA kernels to the plain
 versions on the card and skip here.
 """
+import importlib
 import zlib
 
 import jax.numpy as jnp
@@ -22,6 +23,9 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro.models import layers as ref_layers
 from repro_torch import kernels as K
+
+# The module (the package's ``rmsnorm`` attribute is its function).
+RN = importlib.import_module("repro_torch.kernels.rmsnorm")
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2
 UNWRITTEN = 2 ** 30
@@ -457,3 +461,105 @@ def test_attention_non_causal_on_card(cuda, dtype, Q, window):
     q, k, v, qp, kp = _card_inputs(cuda, dtype, 11 + Q, B, Q, H, KV, dh, K_,
                                    np.arange(200, 200 + Q), np.arange(K_))
     _card_attention(q, k, v, qp, kp, causal=False, window=window)
+
+
+# Every path of the RMSNorm kernel (rmsnorm_plan: a block per row, several
+# rows per block, the scalar kernel), forced through the private launcher
+# and chosen by the wrapper, against the plain version on the same inputs:
+# float32 at 2e-5; bf16 at 3e-2 and within its output rounding, 2^-8 |want|
+# + 1e-3 (both sides compute in float32).
+RMS_PATH_SHAPES = ((1, 2560), (1, 3072), (3, 3072), (256, 3072), (5, 16384),
+                   (2, 32768), (9, 40))
+
+
+def _rms_path_cases():
+    """(dtype, n, d, plan) for every path that covers (n, d): the scalar
+    kernel always; where the plan finds a vector layout, a block per row
+    and 2, 4 or 8 rows per block as far as the block and w fit."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d in RMS_PATH_SHAPES:
+            base = RN.rmsnorm_plan(n, d, dtype)
+            plans = [RN.RmsnormPlan("scalar", RN.SCALAR_THREADS, 0, 1)]
+            if base.items:
+                plans.append(base._replace(path="row", rows=1))
+                plans += [base._replace(path="rows", rows=r) for r in (2, 4, 8)
+                          if r * base.threads <= RN.MAX_THREADS
+                          and d * dtype.itemsize <= RN.MAX_STAGED_W]
+            cases += [pytest.param(dtype, n, d, p, id=f"{str(dtype)[6:]}-"
+                                   f"{n}x{d}-{p.path}{p.rows}x{p.items}")
+                      for p in plans]
+    return cases
+
+
+def _rms_card_inputs(cuda, dtype, n, d, offset=0):
+    rng = np.random.default_rng(31 * n + d + offset)
+    x = torch.from_numpy(2.0 * _normal(rng, (n * d + offset,)) + 0.5).to(
+        cuda, dtype)[offset:].view(n, d)
+    w = torch.from_numpy(0.1 * _normal(rng, (d,))).to(cuda, dtype)
+    return x, w
+
+
+def _rms_close(got, x, w):
+    want = K.rmsnorm_ref(x.float(), w.float(), 1e-6)
+    err = (got.float() - want).abs()
+    tol = F32_TOL if got.dtype == torch.float32 else BF16_TOL
+    assert bool((err <= tol + tol * want.abs()).all())
+    if got.dtype == torch.bfloat16:
+        assert bool((err <= 2.0 ** -8 * want.abs() + 1e-3).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n,d,p", _rms_path_cases())
+def test_rmsnorm_paths_match_plain_on_card(cuda, dtype, n, d, p):
+    """Each path on every shape it can cover; a rows plan over fewer rows
+    than a block holds masks the missing ones."""
+    x, w = _rms_card_inputs(cuda, dtype, n, d)
+    out = torch.empty_like(x)
+    K.reset_launches()
+    RN._launch(x, w, out, 1e-6, p)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rmsnorm"] == 1
+    _rms_close(out, x, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,offset,path", [
+    (1, 2560, 0, "row"), (1, 3072, 0, "row"), (256, 3072, 0, "rows"),
+    (300, 3840, 0, "rows"), (3, 3004, 0, None), (2, 2999, 0, "scalar"),
+    (4, 2560, 1, "scalar"), (3, 3072, 1, "scalar")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_wrapper_paths_on_card(cuda, n, d, offset, path, dtype):
+    """The wrapper's own choice: served shapes on the vector paths; a d of
+    3004 (a multiple of 4, not of 8) on the scalar path in bf16 only; odd
+    d and views at one element's offset (unaligned) on the scalar path."""
+    x, w = _rms_card_inputs(cuda, dtype, n, d, offset)
+    aligned = x.data_ptr() % 16 == 0
+    assert aligned == (offset == 0)
+    plan = RN.rmsnorm_plan(n, d, dtype, aligned)
+    if path is None:
+        path = "scalar" if dtype == torch.bfloat16 else "row"
+    assert plan.path == path
+    K.reset_launches()
+    got = K.rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rmsnorm"] == 1 and got.dtype == dtype
+    _rms_close(got, x, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_paths_agree_on_card(cuda, dtype):
+    """The row and rows paths compute every element the same way (the sum
+    of squares in the same per-thread slices, the same warp tree and the
+    same fixed order over the warps), so they agree bit for bit."""
+    x, w = _rms_card_inputs(cuda, dtype, 9, 1024)
+    outs = []
+    for rows in (1, 2, 4):
+        out = torch.empty_like(x)
+        plan = RN.rmsnorm_plan(1, 1024, dtype)._replace(
+            path="row" if rows == 1 else "rows", rows=rows)
+        RN._launch(x, w, out, 1e-6, plan)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])

@@ -11,6 +11,8 @@ are made with numpy from a seed; the port's layout is the model's
 (B, T, H, dh), the reference kernels' (B, H, T, dh).  Tests marked ``gpu``
 hold the CUDA kernel to the plain version on the card and skip here.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from repro.kernels.rwkv6_scan import wkv6 as pallas_wkv6
 from repro.models.rwkv import wkv6_chunked
 from repro_torch import kernels as K
 from repro_torch.kernels.wkv6 import CHUNKED_T
+
+# The module (the package's ``wkv6`` attribute is its function).
+WK = importlib.import_module("repro_torch.kernels.wkv6")
 
 KERNEL_SHAPES = [(1, 1, 64, 32, 16), (2, 2, 128, 64, 32), (1, 3, 96, 16, 32)]
 ORACLE_TOL, PALLAS_TOL = 1e-5, 1e-4
@@ -210,3 +215,100 @@ def test_wkv6_kernel_matches_plain_on_card(cuda, B, T, H, dh, dtype):
     assert bool(((got - want).abs() <= tol).all())
     s_scale = float(S_want.abs().max())
     assert float((S - S_want).abs().max()) <= ON_CARD_TOL * s_scale
+
+
+def _card_wkv_inputs(cuda, dtype, seed, B, T, H, dh, offset=0):
+    """r, k, v (``dtype``), w, u and S0 on the card; every tensor a view
+    ``offset`` elements into its buffer (unaligned for an offset of 1)."""
+    r, k, v, w, u = _inputs(seed, B, T, H, dh, w_lo=0.2, w_hi=0.999)
+    S0 = (0.1 * np.random.default_rng(seed + 1).standard_normal(
+        (B, H, dh, dh))).astype(np.float32)
+
+    def put(a, dt):
+        flat = np.concatenate([np.zeros(offset, np.float32), a.ravel()])
+        return torch.from_numpy(flat).to(cuda, dt)[offset:].view(a.shape)
+    return ([put(a, dtype) for a in (r, k, v)]
+            + [put(a, torch.float32) for a in (w, u, S0)])
+
+
+def _wkv_close(got, S, want, S_want):
+    scale = float(want.abs().max())
+    assert bool(((got - want).abs() <= ON_CARD_TOL * scale).all())
+    s_scale = float(S_want.abs().max())
+    assert float((S - S_want).abs().max()) <= ON_CARD_TOL * s_scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,dh", [(1, 40, 64), (3, 5, 64), (2, 4, 16),
+                                    (2, 3, 24), (1, 2, 32), (2, 2, 128),
+                                    (2, 3, 7), (1, 4, 3), (2, 2, 126)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_decode_kernel_matches_plain_on_card(cuda, B, H, dh, dtype):
+    """T = 1 through the wrapper takes the decode kernel: float4 columns
+    where dh is a multiple of 4, the scalar column path elsewhere, ragged
+    last column tiles and row slices included; B > 1."""
+    r, k, v, w, u, S0 = _card_wkv_inputs(cuda, dtype, B * 100 + dh, B, 1, H,
+                                         dh)
+    plan = WK.wkv6_plan(B, 1, H, dh, dtype)
+    assert plan.path == "decode" and plan.vec == (4 if dh % 4 == 0 else 1)
+    S = S0.clone()
+    K.reset_launches()
+    got = K.wkv6(r, k, v, w, u, S)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["wkv6"] == 1
+    _wkv_close(got, S, *K.wkv6_ref(r, k, v, w, u, S0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_unaligned_views_on_card(cuda, T, dtype):
+    """Every input a view at one element's offset: at T = 1 the decode
+    kernel takes its scalar column path (S is not 16-byte aligned)."""
+    B, H, dh = 2, 3, 64
+    r, k, v, w, u, S = _card_wkv_inputs(cuda, dtype, 7 + T, B, T, H, dh,
+                                        offset=1)
+    assert all(t.is_contiguous() and t.data_ptr() % 16
+               for t in (r, k, v, w, u, S))
+    plan = WK.wkv6_plan(B, T, H, dh, dtype, aligned=False)
+    assert (plan.path, plan.vec) == (("decode", 1) if T == 1
+                                     else ("sequential", 0))
+    S0 = S.clone()
+    got = K.wkv6(r, k, v, w, u, S)
+    torch.cuda.synchronize()
+    _wkv_close(got, S, *K.wkv6_ref(r, k, v, w, u, S0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,dh", [(1, 40, 64), (2, 3, 24), (2, 2, 7),
+                                    (1, 2, 128)])
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_decode_state_bitwise_equals_sequential_on_card(cuda, B, H, dh,
+                                                             vec, dtype):
+    """At T = 1 the decode kernel (either column width) updates the state
+    as the sequential kernel does, kv = k_i * v_j and S_ij = fmaf(w_i,
+    S_ij, kv): the two states are equal bit for bit.  Both plans go
+    through the private launcher; the outputs, summed in different orders,
+    agree within the card tolerance."""
+    if vec == 4 and dh % 4:
+        vec = 1
+    r, k, v, w, u, S0 = _card_wkv_inputs(cuda, dtype, 3 * dh + vec, B, 1, H,
+                                         dh)
+    seq = WK.wkv6_plan(B, 2, H, dh, dtype)
+    dec = WK.wkv6_plan(B, 1, H, dh, dtype)._replace(vec=vec)
+    groups, slices = WK.COL_TILE // vec, -(-dh // WK.ROWS_PER_THREAD)
+    dec = dec._replace(threads=-(-groups * slices // 32) * 32)
+    assert seq.path == "sequential" and dec.path == "decode"
+    outs, states = [], []
+    for plan in (seq, dec):
+        S = S0.clone()
+        out = torch.empty(r.shape, dtype=torch.float32, device=cuda)
+        WK._launch(r, k, v, w, u, S, out, False, plan)
+        outs.append(out)
+        states.append(S)
+    torch.cuda.synchronize()
+    assert torch.equal(states[0], states[1])
+    want, S_want = K.wkv6_ref(r, k, v, w, u, S0)
+    for out, S in zip(outs, states):
+        _wkv_close(out, S, want, S_want)
