@@ -27,10 +27,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. serving kernels vs plain: RMSNorm at gemma-7b's and rwkv6-3b's decode
    rows (1, 3072) and (1, 2560), the prefill chunk (256, 3072), (300,
    3840), a d that is not a multiple of 8 (3, 3004) and an unaligned view
-   (4, 2560) at one element's offset, with the path each takes, and attention at gemma-7b's decode, its first 256-token
-   prefill chunk (positions 0..255, slots 256.. unwritten: key tiles
-   skipped) and its second, over a 545-slot cache, and at danube's GQA
-   with a 4096 window over a wrapped 4096-slot ring, each in float32
+   (4, 2560) at one element's offset, with the path each takes, and the
+   row path timed at 1, 2 and 4 vectors a thread; attention at
+   gemma-7b's decode, its first 256-token prefill chunk (positions
+   0..255, slots 256.. unwritten: key tiles skipped) and its second, over
+   a 545-slot cache, and at danube's GQA with a 4096 window over a
+   wrapped 4096-slot ring, each in float32
    (tolerance 2e-5) and bf16 (3e-2 against the float32 plain version);
    the path each attention case takes; CUDA-event and profiler times
    beside the plain version, one library call (per-call and device time;
@@ -111,8 +113,7 @@ TPU_KERNELS = {"rmsnorm": "src/repro/kernels/rmsnorm.py:23",
 # -> the entry it follows).
 ENTRY_SYMBOLS = {
     "multi_seed_rows": ("multi_seed_rows_kernel",),
-    "rmsnorm": ("rmsnorm_row_kernel", "rmsnorm_rows_kernel",
-                "rmsnorm_kernel"),
+    "rmsnorm": ("rmsnorm_row_kernel", "rmsnorm_kernel"),
     "flash_attention": ("flash_attention_split_kernel",
                         "flash_attention_wgmma_kernel",
                         "flash_attention_kernel"),
@@ -670,8 +671,9 @@ def time_rmsnorm(n: int, d: int) -> dict:
     weight 1 + w (the function's float32 arithmetic; per call and device
     time), and ``F.rms_norm`` on the bf16 rows with weight (1 + w) rounded
     to bf16 (the bytes the kernel moves; device time).  Beside them the
-    scalar path (the one-block-per-row kernel of PR 12) forced on the same
-    rows, the redesign's gain measured in the same run, and one PyTorch
+    scalar path (the kernel's first design, two passes over the row)
+    forced on the same rows, the redesign's gain measured in the same run,
+    and one PyTorch
     copy of x into a tensor of its shape (device time): what the card
     takes in practice to read x and write y, with no arithmetic."""
     import torch
@@ -680,7 +682,7 @@ def time_rmsnorm(n: int, d: int) -> dict:
     RN = importlib.import_module("repro_torch.kernels.rmsnorm")
     x, w = rmsnorm_inputs(n, d, torch.bfloat16, "cuda")
     out = torch.empty_like(x)
-    scalar = RN.RmsnormPlan("scalar", RN.SCALAR_THREADS, 0, 1)
+    scalar = RN.RmsnormPlan("scalar", RN.SCALAR_THREADS, 0)
     xf, w1 = x.float(), 1.0 + w.float()
     w1b = (1.0 + w).to(x.dtype)
     b_ms, b_by = rmsnorm_bound_ms(n, d, 2)
@@ -705,16 +707,15 @@ def time_rmsnorm(n: int, d: int) -> dict:
     }
 
 
-# The shapes at which phase 6 times every vector plan of RMSNorm (the
-# evidence for rmsnorm_plan's choice): the decode row and two row counts
-# above SMS.
+# The shapes at which phase 6 times the row path at every vector count a
+# thread (the evidence for rmsnorm_plan's choice): the decode row and two
+# row counts above SMS.
 RMS_SWEEP = ((1, 3072), (256, 3072), (300, 3840))
 
 
 def rmsnorm_sweep(n: int, d: int) -> dict:
-    """bf16 device time per call of every vector plan that covers (n, d):
-    items of 1, 2 and 4 vectors a thread, and 1 (the row path), 2, 4 or 8
-    rows a block (the rows path, where the block and the staged w fit)."""
+    """bf16 device time per call of the row path with each thread owning
+    1, 2 or 4 vectors of the row."""
     import torch
     RN = importlib.import_module("repro_torch.kernels.rmsnorm")
     x, w = rmsnorm_inputs(n, d, torch.bfloat16, "cuda")
@@ -722,17 +723,11 @@ def rmsnorm_sweep(n: int, d: int) -> dict:
     nv = d * 2 // RN.VEC_BYTES
     res = {}
     for items in RN.ITEMS:
-        threads = -(-(-(-nv // items)) // 32) * 32
-        for rows in (1, 2, 4, 8):
-            if threads > RN.MAX_THREADS or rows > 1 and (
-                    threads * rows > RN.MAX_THREADS
-                    or 2 * d > RN.MAX_STAGED_W):
-                continue
-            plan = RN.RmsnormPlan("row" if rows == 1 else "rows", threads,
-                                  items, rows)
-            res[f"{plan.path} rows={rows} threads={threads} items={items}"] \
-                = device_ms(lambda: RN._launch(x, w, out, RMS_EPS, plan),
-                            "rmsnorm")
+        threads = (-(-nv // items) + 31) // 32 * 32
+        plan = RN.RmsnormPlan("row", threads, items)
+        if plan.threads <= RN.MAX_THREADS:
+            res[f"items={items} threads={plan.threads}"] = device_ms(
+                lambda: RN._launch(x, w, out, RMS_EPS, plan), "rmsnorm")
     return res
 
 
@@ -1000,10 +995,12 @@ def decode_breakdown(backend,
     ported kernel's device time per call and the kernels that took
     longest.  The busy time is only as complete as the
     profiler's event list, so each ported kernel's profiled launches are
-    held to the launch counter over the same calls (``profile_complete``)."""
+    held to the launch counter over the same calls (``profile_complete``).
+    CUPTI has dropped single kernel records from such a window (a run
+    listed 519 of 520 RMSNorm launches), so a window whose list disagrees
+    with the counter is recorded again, the lane's state carried on, up to
+    ``PROFILE_TRIES`` windows in all; the last must agree."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from repro_torch import kernels as K
     api, model, k = backend.api, backend.model, backend.prefill_chunk
     state = api.init_decode_state(1, backend.max_len)
     logits, _ = api.decode_step(
@@ -1012,31 +1009,13 @@ def decode_breakdown(backend,
         torch.arange(k, dtype=torch.int32, device=backend.device))
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        logits, _ = api.decode_step(model, state, tok, k)
-        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        prof.step()  # the warm-up call's records are dropped
-        # Recording starts at that step; CUPTI can miss the kernels of the
-        # first milliseconds after it (a run lost the first layer's), so
-        # the recorded calls start after a pause.
-        time.sleep(0.2)
-        before = dict(K.LAUNCHES)
-        t0 = time.perf_counter()
-        for i in range(1, steps + 1):
-            logits, _ = api.decode_step(model, state, tok, k + i)
-            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = {n: K.LAUNCHES[n] - before[n] for n in before}
-        prof.step()  # ends the recorded step
-    # Only rows with device time: the CUDA activity also records runtime
-    # calls (cudaLaunchKernel, ...), which take none.
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages() if e.device_time_total > 0),
-                  reverse=True)
+    pos = k
+    for tries in range(1, PROFILE_TRIES + 1):
+        rows, launched, wall, tok = _decode_window(api, model, state, tok,
+                                                   pos, steps)
+        pos += steps + 1
+        if not _profiled_launches(rows, launched)[1]:
+            break
     busy = sum(r[0] for r in rows) / 1e6
     profiled = profile_complete(rows, launched)
     sc = symbol_counts(rows)
@@ -1050,9 +1029,45 @@ def decode_breakdown(backend,
             "launches": sum(r[1] for r in rows) / steps,
             "profiled_launches": profiled,
             "counted_launches": {n: c for n, c in launched.items() if c},
-            "symbols": sc["counts"],
+            "symbols": sc["counts"], "profile_tries": tries,
             "top": [(t / steps / 1e3, c // steps, key[:90])
                     for t, c, key in rows[:10]]}
+
+
+def _decode_window(api, model, state, tok, pos: int, steps: int) -> tuple:
+    """One warm-up decode call at ``pos`` (records dropped), then ``steps``
+    greedy decode calls recorded by torch.profiler (CUDA activity).
+    Returns (profiler rows with device time, launch-counter delta over the
+    recorded calls, their host wall in s, the last token)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch import kernels as K
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        logits, _ = api.decode_step(model, state, tok, pos)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up call's records are dropped
+        # Recording starts at that step; CUPTI can miss the kernels of the
+        # first milliseconds after it (a run lost the first layer's), so
+        # the recorded calls start after a pause.
+        time.sleep(0.2)
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            logits, _ = api.decode_step(model, state, tok, pos + i)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {n: K.LAUNCHES[n] - before[n] for n in before}
+        prof.step()  # ends the recorded step
+    # Only rows with device time: the CUDA activity also records runtime
+    # calls (cudaLaunchKernel, ...), which take none.
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  reverse=True)
+    return rows, launched, wall, tok
 
 
 def profile_complete(rows, launched: dict) -> dict:
@@ -1064,18 +1079,28 @@ def profile_complete(rows, launched: dict) -> dict:
     exactly as often as the entry it follows.  Raises when the profiler
     lists another number for any kernel, since a busy time and idle share
     summed from a list that lost events would be wrong."""
+    profiled, lost = _profiled_launches(rows, launched)
+    if lost:
+        raise AssertionError(lost)
+    return profiled
+
+
+def _profiled_launches(rows, launched: dict) -> tuple:
+    """(profiled launches per ported kernel, "" or why the profiler's list
+    disagrees with the launch counter's ``launched``)."""
     counts = symbol_counts(rows)["counts"]
     profiled = {n: sum(counts.get(s, 0) for s in ENTRY_SYMBOLS[n])
                 for n in launched}
     followers = {f: (counts.get(f, 0), counts.get(lead, 0))
                  for f, lead in FOLLOWERS.items()}
+    lost = ""
     if profiled != launched or any(a != b for a, b in followers.values()):
-        raise AssertionError(
-            f"the profiler lists {profiled} launches of the ported kernels "
-            f"(followers against their entries: {followers}) where the "
-            f"launch counter reads {launched} over the same calls: its "
-            f"event list is incomplete")
-    return {n: c for n, c in profiled.items() if c}
+        lost = (f"the profiler lists {profiled} launches of the ported "
+                f"kernels (followers against their entries: {followers}; "
+                f"by CUDA symbol {counts}) where the launch counter reads "
+                f"{launched} over the same calls: its event list is "
+                f"incomplete")
+    return {n: c for n, c in profiled.items() if c}, lost
 
 
 def check_decode_symbols(counts: dict, launched: dict) -> None:
@@ -1084,10 +1109,11 @@ def check_decode_symbols(counts: dict, launched: dict) -> None:
     CUDA symbol; ``launched``: the launch counter's delta)."""
     for name, sym in DECODE_SYMBOLS.items():
         if launched.get(name) and counts.get(sym, 0) != launched[name]:
+            theirs = {s: c for s, c in counts.items() if s in _symbols(name)}
             raise AssertionError(
                 f"{name}: {counts.get(sym, 0)} of the decode calls' "
                 f"{launched[name]} launches ran {sym}; the profiler lists "
-                f"{ {s: c for s, c in counts.items() if s in _symbols(name)} }")
+                f"{theirs}")
 
 
 def log_breakdown(phase: str, bd: dict) -> None:
@@ -1103,8 +1129,8 @@ def log_breakdown(phase: str, bd: dict) -> None:
     log(f"[{phase}] ported kernels' launches over the "
         f"{DECODE_PROFILE_STEPS} profiled calls: profiler "
         f"{bd['profiled_launches']}, launch counter "
-        f"{bd['counted_launches']} (held equal); by CUDA symbol "
-        f"{bd['symbols']}")
+        f"{bd['counted_launches']} (held equal; window {bd['profile_tries']} "
+        f"of at most {PROFILE_TRIES}); by CUDA symbol {bd['symbols']}")
 
 
 # -- phase 9 ---------------------------------------------------------------
@@ -1217,8 +1243,8 @@ def time_wkv6(name: str) -> dict:
     """bf16 r/k/v (the served dtype), the model's decays: the kernel and
     its plain version.  No single PyTorch call computes WKV-6, so there is
     no library time.  The state evolves in place from call to call.  At
-    T = 1 also the sequential kernel (PR 13's, the decode kernel's
-    predecessor) forced on the same inputs."""
+    T = 1 also the sequential kernel (the decode kernel's predecessor
+    there) forced on the same inputs."""
     import torch
     from repro_torch import kernels as K
     WK = importlib.import_module("repro_torch.kernels.wkv6")
@@ -1341,8 +1367,8 @@ def main() -> int:
             f"bf16 {e['bf16']:.6g} (tolerance {BF16_TOL})" + msg)
     rms_sweep = {f"{n}x{d}": rmsnorm_sweep(n, d) for n, d in RMS_SWEEP}
     for shape, res in rms_sweep.items():
-        log(f"[6] rmsnorm {shape} bf16, device ms per call of each vector "
-            f"plan: {json.dumps(res)}")
+        log(f"[6] rmsnorm {shape} bf16, device ms per call of the row path "
+            f"by vectors a thread: {json.dumps(res)}")
     attn_err, attn_t = {}, {}
     for name in ATTN_CASES:
         attn_err[name] = check_attention(name, "cuda")
@@ -1404,8 +1430,9 @@ def main() -> int:
                    f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}), no "
                    f"library call")
         log(f"[9] wkv6 {name} (B, T, H, dh, state) = {WKV_CASES[name]}, "
-            f"{path} kernel: max|kernel-plain| f32 {e['f32']:.6g}, bf16 {e['bf16']:.6g}; "
-            f"largest error over scale {e['rel']:.3g} (tolerance {WKV_TOL})"
+            f"{path} kernel: max|kernel-plain| f32 {e['f32']:.6g}, bf16 "
+            f"{e['bf16']:.6g}; largest error over scale {e['rel']:.3g} "
+            f"(tolerance {WKV_TOL})"
             + msg)
 
     # 10. rwkv parity, card vs host
@@ -1460,7 +1487,9 @@ def main() -> int:
             "max_abs_err_bf16": max(e["bf16"] for e in errs.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "device_ms": t["device_ms"], "plan": t["plan"],
             "shape": shape(main), "dtype": "bfloat16",
             "prefill": {"shape": shape(prefill), **times[prefill]},
             "model_calls": served["model_calls"],
@@ -1470,7 +1499,9 @@ def main() -> int:
                      for name in ATTN_CASES}
     rms = next(kd for kd in kernels if kd["name"] == "rmsnorm")
     rms["launches_rwkv6_serve"] = rserved["launches"]["rmsnorm"]
-    rms["library_bf16_device_ms"] = rms_t[RMS_MAIN]["library_bf16_device_ms"]
+    for key in ("library_bf16_device_ms", "scalar_device_ms",
+                "copy_device_ms"):
+        rms[key] = rms_t[RMS_MAIN][key]
     rms["rwkv_decode"] = {"shape": list(RMS_RWKV), **rms_t[RMS_RWKV]}
     rms["paths"] = rms_paths
     rms["plan_sweep"] = rms_sweep
@@ -1485,7 +1516,9 @@ def main() -> int:
         "max_err_over_scale": max(e["rel"] for e in wkv_err.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "device_ms": t["device_ms"], "shape": list(WKV_CASES[WKV_MAIN][:4]),
+        "device_ms": t["device_ms"],
+        "sequential_device_ms": t["sequential_device_ms"], "plan": t["plan"],
+        "shape": list(WKV_CASES[WKV_MAIN][:4]),
         "dtype": "bfloat16",
         "t512": {"shape": list(WKV_CASES[WKV_LONG][:4]), **wkv_t[WKV_LONG]},
         "model_calls": rserved["model_calls"],

@@ -20,31 +20,32 @@
 // the decode shapes (N = 1, d = 3072 for gemma-7b, 2560 for rwkv6-3b: 12
 // and 10 KB) by the latency of the launch and of one trip to memory.
 //
-// Design: three paths, chosen on the host from the shapes and the
-// pointers' alignment alone (kernels/rmsnorm.py::rmsnorm_plan).
-//  * Row per block (rmsnorm_row_kernel, N <= 132): one block per row of
-//    d / VEC threads rounded up to a warp, VEC = 16 bytes of elements (8
-//    in bf16: 384 threads at d = 3072, 320 at d = 2560).  Each thread
-//    issues its 16-byte loads of w and of x before any arithmetic, so the
-//    row costs one trip to memory, not the two of a norm that reads w
+// Design: two paths, chosen on the host from the shapes and the pointers'
+// alignment alone (kernels/rmsnorm.py::rmsnorm_plan).
+//  * Row per block (rmsnorm_row_kernel): one block per row.  Each thread
+//    owns ITEMS 16-byte vectors of the row (VEC = 8 elements in bf16, 4 in
+//    float32), at vector indices tid + i * blockDim.x, and the block is
+//    d / VEC / ITEMS threads rounded up to a warp: at the decode rows
+//    (N = 1) ITEMS = 1, 384 threads at d = 3072 and 320 at d = 2560; above
+//    132 rows ITEMS = 2, so that twice the rows are in flight on an SM.
+//    Each thread issues its loads of w and of x before any arithmetic, so
+//    a row costs one trip to memory, not the two of a norm that reads w
 //    after the reduction; x stays in registers and is not read again.
 //    The squares are reduced by warp shuffles, one shared-memory step and
 //    one barrier; every thread then reads the warps' partials as float4
 //    words, all at once, and adds them in warp order (the same fixed order
 //    in every thread), then writes its 16-byte vectors.
-//  * Rows per block (rmsnorm_rows_kernel, N > 132, the prefill chunk):
-//    the same body with ROWS = 2 or 4 rows per block, ROWS = cdiv(N, 132)
-//    rounded up to a power of two, so that N <= 4 * 132 rows run in one
-//    wave of at most one block per SM.  Each thread loads its slice of w
-//    once for all the block's rows and issues every row's loads before any
-//    arithmetic; the rows' sums share the one barrier.
-//  * Scalar (rmsnorm_kernel): d not a multiple of VEC, a pointer not 16-byte
-//    aligned, or a row longer than 4 * 1024 vectors.  One block of 256
-//    threads per row striding over the row, then a second pass that reads
-//    the row again (from L1/L2) with w.
-// Each thread of the vector paths owns ITEMS (1, 2 or 4) vectors of a row,
-// at vector indices tid + i * blockDim.x; ROWS * ITEMS <= 4 keeps the
-// registers within 64 a thread at 1024 threads.
+//  * Scalar (rmsnorm_kernel, the first design of this kernel): d not a
+//    multiple of VEC, a pointer not 16-byte aligned, or a row longer than
+//    4 * 1024 vectors.
+//    One block of 256 threads per row striding over the row, then a second
+//    pass that reads the row again (from L1/L2) with w.
+// A rows-per-block path (several rows a block, w staged once per block in
+// shared memory) was built and measured slower than a block per row at
+// both row counts above 132 that were timed (PERF.md), and removed.
+// What holds the vector path above its bound: every block waits on its
+// loads, then on the reduction, before it stores; at the prefill chunk it
+// takes about 1.5 times a plain PyTorch copy of the same bytes.
 // Templated on the element type: bf16 for the served model, float32 for
 // the tests and the model-parity check.  w has x's type.
 //
@@ -60,10 +61,8 @@ namespace {
 constexpr int THREADS = 256;  // the scalar path's block
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_ROWS = 8;                // rows per block, rows path
-constexpr int MAX_STAGED_W = 48 * 1024;    // bytes of w staged, rows path
 // Paths, as kernels/rmsnorm.py::PATHS numbers them.
-constexpr int PATH_SCALAR = 0, PATH_ROW = 1, PATH_ROWS = 2;
+constexpr int PATH_SCALAR = 0, PATH_ROW = 1;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -114,25 +113,17 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// The vector paths' body: one row per threadIdx.y, blockDim.x threads on
-// it, ITEMS vectors of the row a thread.  STAGED: the block's rows share w,
-// loaded into shared memory once per block (dynamic, d elements) by all of
-// its threads; else each thread keeps its slice of w in registers.
-template <typename T, int ITEMS, bool STAGED>
-__device__ __forceinline__ void norm_rows(const T* __restrict__ x,
-                                          const T* __restrict__ w,
-                                          T* __restrict__ y, int n, int d,
-                                          float eps) {
+// The row path: one row a block, ITEMS vectors of it a thread.
+template <typename T, int ITEMS>
+__global__ void __launch_bounds__(MAX_THREADS)
+rmsnorm_row_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   T* __restrict__ y, int d, float eps) {
   using V = Vec<T>;
-  extern __shared__ uint4 w_s[];
-  __shared__ __align__(16) float partial[MAX_ROWS][MAX_THREADS / 32];
+  __shared__ __align__(16) float partial[MAX_THREADS / 32];
   const int nv = d / V::N;  // vectors in a row
   const int t = threadIdx.x;
-  const int P = blockDim.x;  // threads on a row, a multiple of 32
-  const size_t row = static_cast<size_t>(blockIdx.x) * blockDim.y +
-                     threadIdx.y;
-  const bool live = row < static_cast<size_t>(n);
-  const int warp = t >> 5;
+  const int P = blockDim.x;  // a multiple of 32
+  const size_t row = blockIdx.x;
   const int lane = t & 31;
   const int warps = P >> 5;
   const uint4* w4 = reinterpret_cast<const uint4*>(w);
@@ -143,18 +134,8 @@ __device__ __forceinline__ void norm_rows(const T* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const int v = t + i * P;
-    xv[i] = live && v < nv ? x4[v] : make_uint4(0, 0, 0, 0);
-  }
-  if constexpr (STAGED) {
-    for (int v = threadIdx.y * P + t; v < nv; v += P * blockDim.y) {
-      w_s[v] = w4[v];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int v = t + i * P;
-      wv[i] = v < nv ? w4[v] : make_uint4(0, 0, 0, 0);
-    }
+    xv[i] = v < nv ? x4[v] : make_uint4(0, 0, 0, 0);
+    wv[i] = v < nv ? w4[v] : make_uint4(0, 0, 0, 0);
   }
 
   float ss = 0.0f;
@@ -169,17 +150,16 @@ __device__ __forceinline__ void norm_rows(const T* __restrict__ x,
   for (int off = 16; off > 0; off >>= 1) {
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
   }
-  if (lane == 0) partial[threadIdx.y][warp] = ss;
-  __syncthreads();  // the partials, and a staged w
-  if (!live) return;
+  if (lane == 0) partial[t >> 5] = ss;
+  __syncthreads();
 
-  // The row's warp partials as float4 words, all read at once, then added
-  // in warp order.
+  // The warps' partials as float4 words, all read at once, then added in
+  // warp order.
   float4 pw[MAX_THREADS / 128];
 #pragma unroll
   for (int q = 0; q < MAX_THREADS / 128; ++q) {
     if (4 * q < warps) {
-      pw[q] = *reinterpret_cast<const float4*>(&partial[threadIdx.y][4 * q]);
+      pw[q] = *reinterpret_cast<const float4*>(&partial[4 * q]);
     }
   }
   float tot = 0.0f;
@@ -198,26 +178,12 @@ __device__ __forceinline__ void norm_rows(const T* __restrict__ x,
     if (v < nv) {
       float f[V::N], g[V::N];
       V::unpack(xv[i], f);
-      V::unpack(STAGED ? w_s[v] : wv[i], g);
+      V::unpack(wv[i], g);
 #pragma unroll
       for (int e = 0; e < V::N; ++e) f[e] = (f[e] * rs) * (1.0f + g[e]);
       y4[v] = V::pack(f);
     }
   }
-}
-
-template <typename T, int ITEMS>
-__global__ void __launch_bounds__(MAX_THREADS)
-rmsnorm_row_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   T* __restrict__ y, int n, int d, float eps) {
-  norm_rows<T, ITEMS, false>(x, w, y, n, d, eps);
-}
-
-template <typename T, int ITEMS>
-__global__ void __launch_bounds__(MAX_THREADS)
-rmsnorm_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ y, int n, int d, float eps) {
-  norm_rows<T, ITEMS, true>(x, w, y, n, d, eps);
 }
 
 // The scalar path: any d, any alignment.
@@ -259,24 +225,11 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int ITEMS>
-void launch_vec(int path, int n, int d, int threads, int rows,
-                cudaStream_t st, const T* x, const T* w, T* y, float eps) {
-  const int blocks = (n + rows - 1) / rows;
-  if (path == PATH_ROW) {
-    rmsnorm_row_kernel<T, ITEMS><<<blocks, threads, 0, st>>>(x, w, y, n, d,
-                                                             eps);
-  } else {
-    rmsnorm_rows_kernel<T, ITEMS><<<blocks, dim3(threads, rows),
-                                    d * sizeof(T), st>>>(x, w, y, n, d, eps);
-  }
-}
-
-// path, threads, items and rows come from the host's plan; they are
-// checked here against what the vector kernels can cover.
+// path, threads and items come from the host's plan; they are checked
+// here against what the row kernel can cover.
 template <typename T>
 int launch(const T* x, const T* w, T* y, int n, int d, float eps, int path,
-           int threads, int items, int rows, void* stream) {
+           int threads, int items, void* stream) {
   if (n <= 0 || d <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == PATH_SCALAR) {
@@ -284,22 +237,18 @@ int launch(const T* x, const T* w, T* y, int n, int d, float eps, int path,
     return static_cast<int>(cudaGetLastError());
   }
   const int vec = Vec<T>::N;
-  const bool rows_ok =
-      path == PATH_ROW ? rows == 1
-                       : (path == PATH_ROWS && rows >= 2 &&
-                          rows <= MAX_ROWS && threads * rows <= MAX_THREADS &&
-                          d * static_cast<int>(sizeof(T)) <= MAX_STAGED_W);
-  if (!rows_ok || d % vec != 0 || threads % 32 != 0 || threads <= 0 ||
-      threads > MAX_THREADS || (items != 1 && items != 2 && items != 4) ||
+  if (path != PATH_ROW || d % vec != 0 || threads % 32 != 0 ||
+      threads <= 0 || threads > MAX_THREADS ||
+      (items != 1 && items != 2 && items != 4) ||
       static_cast<long long>(threads) * items * vec < d) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (items == 1) {
-    launch_vec<T, 1>(path, n, d, threads, rows, st, x, w, y, eps);
+    rmsnorm_row_kernel<T, 1><<<n, threads, 0, st>>>(x, w, y, d, eps);
   } else if (items == 2) {
-    launch_vec<T, 2>(path, n, d, threads, rows, st, x, w, y, eps);
+    rmsnorm_row_kernel<T, 2><<<n, threads, 0, st>>>(x, w, y, d, eps);
   } else {
-    launch_vec<T, 4>(path, n, d, threads, rows, st, x, w, y, eps);
+    rmsnorm_row_kernel<T, 4><<<n, threads, 0, st>>>(x, w, y, d, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -308,16 +257,15 @@ int launch(const T* x, const T* w, T* y, int n, int d, float eps, int path,
 
 extern "C" int rmsnorm_f32(const float* x, const float* w, float* y, int n,
                            int d, float eps, int path, int threads,
-                           int items, int rows, void* stream) {
-  return launch<float>(x, w, y, n, d, eps, path, threads, items, rows,
-                       stream);
+                           int items, void* stream) {
+  return launch<float>(x, w, y, n, d, eps, path, threads, items, stream);
 }
 
 extern "C" int rmsnorm_bf16(const void* x, const void* w, void* y, int n,
                             int d, float eps, int path, int threads,
-                            int items, int rows, void* stream) {
+                            int items, void* stream) {
   return launch<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x),
                                static_cast<const __nv_bfloat16*>(w),
                                static_cast<__nv_bfloat16*>(y), n, d, eps,
-                               path, threads, items, rows, stream);
+                               path, threads, items, stream);
 }

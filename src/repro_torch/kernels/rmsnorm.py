@@ -10,10 +10,9 @@ Pallas kernel ``repro/kernels/rmsnorm.py::rmsnorm``; the source states its
 bound and design) on a CUDA tensor, or raises; only tensors on the CPU
 take the plain version :func:`rmsnorm_ref`.  :func:`rmsnorm_plan` picks
 the kernel's path from the shapes and the pointers' alignment alone: a
-block per row with 16-byte loads of x and w issued together (at most
-``SMS`` rows: the decode shapes), several rows per block above that (the
-prefill chunk), and a scalar kernel for a d that is not a multiple of 16
-bytes or an unaligned pointer.
+block per row with 16-byte loads of x and w issued together, or a scalar
+kernel for a d that is not a multiple of 16 bytes or an unaligned
+pointer.
 """
 from __future__ import annotations
 
@@ -26,34 +25,28 @@ from . import LAUNCHES
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# The plan's constants; MAX_THREADS, ITEMS, MAX_ROWS and MAX_STAGED_W are
-# also the bounds that csrc/rmsnorm.cu's launch checks.
+# The plan's constants; MAX_THREADS and ITEMS are also the bounds that
+# csrc/rmsnorm.cu's launch checks.
 SMS = 132                 # streaming multiprocessors of an H100 SXM
-VEC_BYTES = 16            # one load or store of a vector path's thread
+VEC_BYTES = 16            # one load or store of a row-path thread
 MAX_THREADS = 1024
 ITEMS = (1, 2, 4)         # vectors of a row a thread may own
-MAX_ROWS = 8
-MAX_STAGED_W = 48 * 1024  # bytes of w the rows path stages per block
-ROWS_PER_BLOCK = 2        # the rows path's rows per block
 SCALAR_THREADS = 256
-PATHS = {"scalar": 0, "row": 1, "rows": 2}
+PATHS = {"scalar": 0, "row": 1}
 
 
 class RmsnormPlan(NamedTuple):
     """How one call runs on the card, as the wrapper passes it to the
     kernel.
 
-    path : "row" (a block per row), "rows" (``rows`` rows per block, w
-        staged once per block) or "scalar".
-    threads : threads on each row of a block.
+    path : "row" (a block per row, 16-byte vectors) or "scalar".
+    threads : threads per block.
     items : 16-byte vectors of a row each thread owns, at vector indices
         thread + i * threads (0 on the scalar path, which strides).
-    rows : rows per block.
     """
     path: str
     threads: int
     items: int
-    rows: int
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -66,24 +59,22 @@ def rmsnorm_plan(n: int, d: int, dtype: torch.dtype,
     are 16-byte aligned.
 
     A d that is a multiple of 16 bytes of elements, with aligned pointers,
-    takes a vector path: each thread owns ``items`` vectors (the fewest of
-    ``ITEMS`` that keep a row within ``MAX_THREADS`` threads) and a row
-    d / 16 bytes / items threads, rounded up to a warp.  Up to ``SMS`` rows
-    take a block each; more take ``ROWS_PER_BLOCK`` rows a block with w
-    staged once per block, where the block and w fit.  Everything else,
-    and rows longer than 4 * MAX_THREADS vectors, the scalar kernel.
+    takes the row path: a block per row, each thread owning ``items``
+    vectors, the fewest of ``ITEMS`` that keep a row within
+    ``MAX_THREADS`` threads, and at least 2 above ``SMS`` rows, where
+    more rows than SMs share the card (measured faster at 300 rows of
+    3840, level at the 256-row prefill chunk); the block is d / 16 bytes
+    / items threads, rounded up to a warp.
+    Everything else, and rows longer than 4 * MAX_THREADS vectors, takes
+    the scalar kernel.
     """
-    vec = VEC_BYTES // dtype.itemsize
-    nv = d // vec
-    if aligned and d % vec == 0:
+    nv = d * dtype.itemsize // VEC_BYTES
+    if aligned and d * dtype.itemsize % VEC_BYTES == 0:
         for items in ITEMS:
-            if _cdiv(nv, items) <= MAX_THREADS:
-                threads = _cdiv(_cdiv(nv, items), 32) * 32
-                if (n > SMS and threads * ROWS_PER_BLOCK <= MAX_THREADS
-                        and d * dtype.itemsize <= MAX_STAGED_W):
-                    return RmsnormPlan("rows", threads, items, ROWS_PER_BLOCK)
-                return RmsnormPlan("row", threads, items, 1)
-    return RmsnormPlan("scalar", SCALAR_THREADS, 0, 1)
+            if _cdiv(nv, items) <= MAX_THREADS and (n <= SMS or items > 1):
+                return RmsnormPlan("row", _cdiv(_cdiv(nv, items), 32) * 32,
+                                   items)
+    return RmsnormPlan("scalar", SCALAR_THREADS, 0)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -116,7 +107,7 @@ def _kernel_fn(dtype: torch.dtype):
     fn = getattr(load_library("rmsnorm").lib, f"rmsnorm_{DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -155,7 +146,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, eps: float,
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, d,
                     float(eps), PATHS[plan.path], plan.threads, plan.items,
-                    plan.rows, stream)
+                    stream)
     if status != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error "
                            f"{status} (N={n}, d={d}, {x.dtype}, {plan})")

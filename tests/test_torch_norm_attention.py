@@ -474,20 +474,17 @@ RMS_PATH_SHAPES = ((1, 2560), (1, 3072), (3, 3072), (256, 3072), (5, 16384),
 
 def _rms_path_cases():
     """(dtype, n, d, plan) for every path that covers (n, d): the scalar
-    kernel always; where the plan finds a vector layout, a block per row
-    and 2, 4 or 8 rows per block as far as the block and w fit."""
+    kernel always; the row path with each thread owning 1, 2 or 4 vectors,
+    where the row fits a block."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for n, d in RMS_PATH_SHAPES:
-            base = RN.rmsnorm_plan(n, d, dtype)
-            plans = [RN.RmsnormPlan("scalar", RN.SCALAR_THREADS, 0, 1)]
-            if base.items:
-                plans.append(base._replace(path="row", rows=1))
-                plans += [base._replace(path="rows", rows=r) for r in (2, 4, 8)
-                          if r * base.threads <= RN.MAX_THREADS
-                          and d * dtype.itemsize <= RN.MAX_STAGED_W]
+            nv = d * dtype.itemsize // RN.VEC_BYTES
+            plans = [RN.RmsnormPlan("scalar", RN.SCALAR_THREADS, 0)]
+            plans += [RN.RmsnormPlan("row", -(-nv // (32 * i)) * 32, i)
+                      for i in RN.ITEMS if -(-nv // i) <= RN.MAX_THREADS]
             cases += [pytest.param(dtype, n, d, p, id=f"{str(dtype)[6:]}-"
-                                   f"{n}x{d}-{p.path}{p.rows}x{p.items}")
+                                   f"{n}x{d}-{p.path}x{p.items}")
                       for p in plans]
     return cases
 
@@ -512,8 +509,8 @@ def _rms_close(got, x, w):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,n,d,p", _rms_path_cases())
 def test_rmsnorm_paths_match_plain_on_card(cuda, dtype, n, d, p):
-    """Each path on every shape it can cover; a rows plan over fewer rows
-    than a block holds masks the missing ones."""
+    """Each path on every shape it can cover; threads past the row's last
+    vector load nothing and store nothing."""
     x, w = _rms_card_inputs(cuda, dtype, n, d)
     out = torch.empty_like(x)
     K.reset_launches()
@@ -525,8 +522,8 @@ def test_rmsnorm_paths_match_plain_on_card(cuda, dtype, n, d, p):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,offset,path", [
-    (1, 2560, 0, "row"), (1, 3072, 0, "row"), (256, 3072, 0, "rows"),
-    (300, 3840, 0, "rows"), (3, 3004, 0, None), (2, 2999, 0, "scalar"),
+    (1, 2560, 0, "row"), (1, 3072, 0, "row"), (256, 3072, 0, "row"),
+    (300, 3840, 0, "row"), (3, 3004, 0, None), (2, 2999, 0, "scalar"),
     (4, 2560, 1, "scalar"), (3, 3072, 1, "scalar")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_wrapper_paths_on_card(cuda, n, d, offset, path, dtype):
@@ -545,21 +542,3 @@ def test_rmsnorm_wrapper_paths_on_card(cuda, n, d, offset, path, dtype):
     torch.cuda.synchronize()
     assert K.LAUNCHES["rmsnorm"] == 1 and got.dtype == dtype
     _rms_close(got, x, w)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rmsnorm_paths_agree_on_card(cuda, dtype):
-    """The row and rows paths compute every element the same way (the sum
-    of squares in the same per-thread slices, the same warp tree and the
-    same fixed order over the warps), so they agree bit for bit."""
-    x, w = _rms_card_inputs(cuda, dtype, 9, 1024)
-    outs = []
-    for rows in (1, 2, 4):
-        out = torch.empty_like(x)
-        plan = RN.rmsnorm_plan(1, 1024, dtype)._replace(
-            path="row" if rows == 1 else "rows", rows=rows)
-        RN._launch(x, w, out, 1e-6, plan)
-        outs.append(out)
-    torch.cuda.synchronize()
-    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])

@@ -465,6 +465,44 @@ def test_chip_smoke_profile_held_to_launch_counter():
                             "flash_attention_merge_kernel": 224}
 
 
+def test_chip_smoke_decode_calls_held_to_their_entry_kernels():
+    """A served decode call is one token: its RMSNorms must run the
+    row-per-block kernel and its WKV-6s the decode kernel, every launch;
+    a call that fell to the scalar or sequential kernel fails."""
+    cs = _chip_smoke()
+    row = "void (anonymous namespace)::rmsnorm_row_kernel<__nv_bfloat16, 1>"
+    dec = "void (anonymous namespace)::wkv6_decode_kernel<__nv_bfloat16, 4>"
+    seq = "void (anonymous namespace)::wkv6_kernel<__nv_bfloat16, 64>(...)"
+    scalar = "void (anonymous namespace)::rmsnorm_kernel<__nv_bfloat16>"
+    launched = {"multi_seed_rows": 0, "rmsnorm": 520, "flash_attention": 0,
+                "wkv6": 256}
+    rows = [(1.0, 520, row + "(...)"), (0.5, 256, dec + "(...)")]
+    counts = cs.symbol_counts(rows)["counts"]
+    assert counts == {"rmsnorm_row_kernel": 520, "wkv6_decode_kernel": 256}
+    assert cs.profile_complete(rows, launched) == {"rmsnorm": 520,
+                                                   "wkv6": 256}
+    cs.check_decode_symbols(counts, launched)
+    for bad in ([(1.0, 519, row + "(...)"), (0.1, 1, scalar + "(...)"),
+                 rows[1]],
+                [rows[0], (0.5, 255, dec + "(...)"), (0.1, 1, seq)]):
+        bad_counts = cs.symbol_counts(bad)["counts"]
+        # The launches add up; only the kernel they ran is wrong.
+        assert cs.profile_complete(bad, launched)
+        with pytest.raises(AssertionError, match="launches ran"):
+            cs.check_decode_symbols(bad_counts, launched)
+
+
+def test_chip_smoke_wkv6_cases_take_their_kernels():
+    """Phase 9: the decode case runs the decode kernel, every other case
+    the sequential one."""
+    cs = _chip_smoke()
+    paths = {n: cs.wkv6_plan_of(n, torch.bfloat16).path
+             for n in cs.WKV_CASES}
+    assert paths == {"decode": "decode", "t64": "sequential",
+                     "t512": "sequential", "ragged": "sequential"}
+    assert cs.WKV_MAIN == "decode"
+
+
 def test_chip_smoke_rwkv_model_phases_rehearsed_on_cpu():
     cs = _chip_smoke()
     cfg = cs.parity_config("rwkv6-3b")

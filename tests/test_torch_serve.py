@@ -208,6 +208,30 @@ def _chip_smoke():
     return mod
 
 
+def test_chip_smoke_rmsnorm_cases_rehearsed_on_cpu():
+    """Phase 6's RMSNorm cases: both served decode rows, the prefill chunk,
+    a d that is not a multiple of 8 and an unaligned view, each on the
+    path the plan picks; the offset view is contiguous and held to the
+    plain version like the others."""
+    cs = _chip_smoke()
+    shapes = {(n, d): off for n, d, off in cs.RMS_SHAPES}
+    assert {(1, 3072), (1, 2560), (256, 3072)} <= set(shapes)
+    assert cs.RMS_RWKV == (1, 2560) and cs.RMS_RWKV in cs.RMS_TIMED
+    assert any(d % 8 for d in (d for _, d in shapes))
+    assert any(shapes.values())
+    paths = {(n, d, off): cs.rmsnorm_plan_of(n, d, torch.bfloat16, off).path
+             for n, d, off in cs.RMS_SHAPES}
+    assert paths == {(1, 3072, 0): "row", (1, 2560, 0): "row",
+                     (256, 3072, 0): "row", (300, 3840, 0): "row",
+                     (3, 3004, 0): "scalar", (4, 2560, 1): "scalar"}
+    assert cs.rmsnorm_plan_of(3, 3004, torch.float32).path == "row"
+    x, _ = cs.rmsnorm_inputs(4, 40, torch.bfloat16, "cpu", 1)
+    assert x.shape == (4, 40) and x.is_contiguous() and x.data_ptr() % 16
+    for n, d, off in ((1, 64, 0), (3, 44, 0), (4, 40, 1)):
+        errs = cs.check_rmsnorm(n, d, "cpu", off)
+        assert errs["f32"] == 0.0 and errs["bf16"] <= 3 * cs.BF16_TOL
+
+
 def test_chip_smoke_kernel_phase_rehearsed_on_cpu():
     cs = _chip_smoke()
     for n, d in ((1, 64), (5, 96)):
