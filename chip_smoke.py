@@ -15,12 +15,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    k = 1, 8, 64, 256 seeds and at a ragged (1000, 37, 3), on fleet-like
    and on centred inputs, each element within its own rounding
    tolerance; results >= 0 and a seed's distance to itself 0; batched rows
-   bitwise equal to per-seed rows; CUDA-event times of the kernel, the
-   plain version and one PyTorch expression of the same function, beside
+   bitwise equal to per-seed rows; the path ``seed_rows_plan`` picks for
+   each shape, and the profiled CUDA symbol of each k (k = 1 on the row
+   path); CUDA-event and profiler times of the kernel, the plain version
+   and one PyTorch expression of the same function (``addmm``), beside
    the kernel's bound;
 4. corpus: the 19 synthetic fault-corpus entries through
    ``AutoAnalyzer(distance_backend="kernel")`` on the card; the verdict
-   snapshot must equal the committed ``VERDICTS_synthetic.json``;
+   snapshot must equal the committed ``VERDICTS_synthetic.json``; then
+   the fault pin: the 2 x 4 matrix whose composite trial once split the
+   lanes, clustered on the kernel lane on the card as the exact lane
+   does;
 5. fleet: a 16384-shard x 128-region trace with a 2048-shard compute
    straggler and an I/O hotspot, saved, loaded and analyzed on the kernel
    lane and on the exact numpy lane; the two verdicts must be equal;
@@ -66,9 +71,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    lanes with equal verdicts.
 
 Phases 4, 5, 8 and 11 count the kernels' launches from 0 and fail if the
-main path never launched them.  The last two lines of standard output
-are a ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device":
-{...}}``.
+main path never launched them; they also record the seed-row launches by
+seed count k (``SEED_COUNTS``) and the kernel lane's candidacies that its
+float32 error bound could not settle and re-decided on the exact lane
+(``AutoAnalyzer.decisions``).  A served trace whose verdicts differ
+between the lanes is saved under ``build/split_traces/`` (the path
+printed) before the phase raises.  The last two lines of standard output are a
+``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
 
 The phases are importable functions, so the CPU tests rehearse them at a
 small size with ``device="cpu"``; ``main()`` itself refuses to run
@@ -87,6 +96,14 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# Tolerances of the seed-row kernel, in units of each element's own float32
+# rounding scale (repro_torch.kernels.distance.rounding_scale): the kernel
+# against a float64 evaluation of the same inputs (C_F64), and against the
+# plain float32 version, whose own rounding adds to the kernel's
+# (C_PLAIN).  The kernel lane's decision bound is built on the same
+# constants, so a kernel whose error grows fails here first.
+from repro_torch.kernels.distance import C_F64, C_PLAIN  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet) at its full 700 W:
 # the kernel's bound is the larger of bytes over the memory rate and
@@ -112,7 +129,7 @@ TPU_KERNELS = {"rmsnorm": "src/repro/kernels/rmsnorm.py:23",
 # split-K decode path then launches its merge kernel (FOLLOWERS: follower
 # -> the entry it follows).
 ENTRY_SYMBOLS = {
-    "multi_seed_rows": ("multi_seed_rows_kernel",),
+    "multi_seed_rows": ("seed_row_kernel", "seed_tile_kernel"),
     "rmsnorm": ("rmsnorm_row_kernel", "rmsnorm_kernel"),
     "flash_attention": ("flash_attention_split_kernel",
                         "flash_attention_wgmma_kernel",
@@ -182,14 +199,6 @@ def library_rows(points, sq, idx):
     il = idx.long()
     return (sq[il, None] + sq[None, :]).addmm(
         points[il], points.T, alpha=-2).clamp_min(0)
-
-
-# Tolerances, in units of each element's own float32 rounding scale
-# (repro_torch.kernels.distance.rounding_scale): the kernel against a
-# float64 evaluation of the same inputs, and against the plain float32
-# version, whose own rounding adds to the kernel's.
-C_F64 = 3.0
-C_PLAIN = 4.0
 
 
 def _within(got, want, scale, c: float, what: str) -> tuple:
@@ -334,22 +343,41 @@ def library_device_ms(fn, iters: int = 50):
     return sum(t for t, _, _ in _profile_rows(fn, iters)) / iters / 1e3
 
 
+# The CUDA symbol each path of seed_rows_plan launches.
+SEED_ROWS_SYMBOLS = {"row": "seed_row_kernel", "tile": "seed_tile_kernel"}
+
+
 def time_kernel(m: int, n: int, k: int) -> dict:
+    """CUDA-event and profiler times of the kernel, its plain version and
+    the ``addmm`` expression, the bound, the plan, and the CUDA symbols
+    one profiled window of the kernel lists (held to the plan's path)."""
     from repro_torch.kernels import distance as D
     pts, sq, idx = kernel_inputs(m, n, k, "cuda")
     b_ms, b_by = bound_ms(m, n, k)
+    plan = D.seed_rows_plan(m, n, k)     # buffers from the allocator align
+
+    def kernel():
+        return D.multi_seed_rows(pts, sq, idx)
 
     def library():
         return library_rows(pts, sq, idx)
+    for _ in range(PROFILE_TRIES):
+        symbols = symbol_counts(_profile_rows(kernel, 20))["counts"]
+        if symbols:
+            break
+    if set(symbols) != {SEED_ROWS_SYMBOLS[plan.path]}:
+        raise AssertionError(f"(m, n, k) = {(m, n, k)} plans the "
+                             f"{plan.path} path but the profiler lists "
+                             f"{symbols}")
     return {
-        "ms": cuda_ms(lambda: D.multi_seed_rows(pts, sq, idx), 200),
+        "ms": cuda_ms(kernel, 200),
         "plain_ms": cuda_ms(lambda: D.multi_seed_rows_ref(pts, sq, idx),
                             max(3, 200 // k)),
         "library_ms": cuda_ms(library, 200),
         "library_device_ms": library_device_ms(library),
         "bound_ms": b_ms, "bound_by": b_by,
-        "device_ms": device_ms(lambda: D.multi_seed_rows(pts, sq, idx),
-                               "multi_seed_rows"),
+        "device_ms": device_ms(kernel, "multi_seed_rows"),
+        "plan": plan._asdict(), "symbols": symbols,
     }
 
 
@@ -357,17 +385,21 @@ def time_kernel(m: int, n: int, k: int) -> dict:
 
 def corpus_phase(device) -> dict:
     """The 19 synthetic corpus entries on the kernel lane, held to the
-    committed verdict snapshot.  Returns the kernel's launch count."""
+    committed verdict snapshot.  Returns the kernel's launch count, its
+    launches by seed count and the lane's re-decided candidacies."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.cli.snapshot_verdicts import drift, snapshot
+    from repro_torch.core.clustering import get_distance_backend
     with open(ROOT / "VERDICTS_synthetic.json") as f:
         baseline = json.load(f)
+    backend = get_distance_backend("kernel", device)
     K.reset_launches()
     t0 = time.perf_counter()
-    current = snapshot(0, "kernel", device)
+    current = snapshot(0, backend, device)
     wall = time.perf_counter() - t0
     launches = K.LAUNCHES["multi_seed_rows"]
+    seed_counts = dict(K.SEED_COUNTS)
     bad = drift(baseline, current)
     if bad or set(current) != set(baseline):
         raise AssertionError(f"kernel-lane verdicts drifted from "
@@ -376,7 +408,46 @@ def corpus_phase(device) -> dict:
     # launches nothing.
     if launches == 0 and torch.device(device).type == "cuda":
         raise AssertionError("the corpus never launched the kernel")
-    return {"entries": len(current), "launches": launches, "wall_s": wall}
+    return {"entries": len(current), "launches": launches, "wall_s": wall,
+            "seed_counts": seed_counts, "decisions": dict(backend.decisions)}
+
+
+# The (m, n) matrix of a CPU-timed serving trace on which the kernel lane
+# once split from the exact lane: zeroing columns 0 and 1 together leaves
+# an exact D² of 5.68e-8 against a squared radius of 2.62e-9, and float32
+# base rows of norm 0.71 put it at about 0.
+FAULT_PIN = ((1.4126013409999993, 0.8884826409999995, 0.0,
+              5.1191000056860503e-04),
+             (0.67398050800000009, 0.48293688799999934, 0.0,
+              2.7357000044503366e-04))
+
+
+def fault_pin_phase(device) -> dict:
+    """The fault pin through ``IncrementalClusterState`` on the kernel lane
+    (cluster_batch, the lockstep rounds, and push/cluster, the host pass)
+    and on the exact lane: the partitions must be equal, 2 clusters."""
+    import numpy as np
+    from repro_torch.core import IncrementalClusterState
+    from repro_torch.core.clustering import get_distance_backend
+    W = np.array(FAULT_PIN)
+    out = {}
+    for lane in ("kernel", "numpy"):
+        backend = get_distance_backend(lane, device)
+        st = IncrementalClusterState(W, backend=backend)
+        batch = st.cluster_batch([([0, 1], 0.0)])[0]
+        st.push([0, 1], 0.0)
+        pushed = st.cluster()
+        out[lane] = (batch, pushed, st.fetch_stats)
+    want = out["numpy"][0]
+    for res in out["kernel"][:2]:
+        if not (res.n_clusters == want.n_clusters == 2
+                and res.same_partition(want)):
+            raise AssertionError(f"fault pin: the kernel lane gives "
+                                 f"{res.n_clusters} clusters, the exact "
+                                 f"lane {want.n_clusters}")
+    stats = out["kernel"][2]
+    return {"n_clusters": want.n_clusters, "flagged": stats["flagged"],
+            "redecided": stats["redecided"]}
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -437,12 +508,13 @@ def fleet_phase(m: int, n: int, straggler_procs: int, device) -> dict:
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
-    res_k = AutoAnalyzer(tree, distance_backend="kernel",
-                         device=device).analyze_trace(trace)
+    an_k = AutoAnalyzer(tree, distance_backend="kernel", device=device)
+    res_k = an_k.analyze_trace(trace)
     if on_card:
         torch.cuda.synchronize()
     wall_k = time.perf_counter() - t0
     launches = K.LAUNCHES["multi_seed_rows"]
+    seed_counts = dict(K.SEED_COUNTS)
     t0 = time.perf_counter()
     res_n = AutoAnalyzer(tree, distance_backend="numpy").analyze_trace(trace)
     wall_n = time.perf_counter() - t0
@@ -465,7 +537,8 @@ def fleet_phase(m: int, n: int, straggler_procs: int, device) -> dict:
         "causes": doc_n["cause_attributes"],
         "planted_named": all(p in named for p in planted),
         "kernel_lane_s": wall_k, "numpy_lane_s": wall_n,
-        "launches": launches, "breakdown": breakdown,
+        "launches": launches, "seed_counts": seed_counts,
+        "decisions": dict(an_k.decisions), "breakdown": breakdown,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if on_card else None),
     }
@@ -962,12 +1035,18 @@ def serve_phase(argv, device) -> dict:
     tree = tree_from_schema(trace.schema)
     check_phase_times(trace, tree, ("prefill", "decode", "sample"))
     K.reset_launches()
-    res_k = AutoAnalyzer(tree, distance_backend="kernel",
-                         device=device).analyze_trace(trace)
+    an_k = AutoAnalyzer(tree, distance_backend="kernel", device=device)
+    res_k = an_k.analyze_trace(trace)
     analysis_launches = K.LAUNCHES["multi_seed_rows"]
+    seed_counts = dict(K.SEED_COUNTS)
     res_n = AutoAnalyzer(tree, distance_backend="numpy").analyze_trace(trace)
     doc_k, doc_n = res_k.verdict.doc(), res_n.verdict.doc()
     if doc_k != doc_n:
+        kept = ROOT / "build" / "split_traces" / f"{time.time_ns()}.npz"
+        kept.parent.mkdir(parents=True, exist_ok=True)
+        trace.save(str(kept))
+        log(f"serving verdicts differ between lanes; the served trace is "
+            f"saved to {kept}")
         raise AssertionError(f"serving verdicts differ between lanes:\n"
                              f"kernel {doc_k}\nnumpy  {doc_n}")
     return {"summary": serve.summary(engine), "wall_s": wall,
@@ -977,6 +1056,7 @@ def serve_phase(argv, device) -> dict:
             "model_calls": calls, "launches": launches,
             "max_memory_allocated": peak, "verdict": doc_n,
             "analysis_launches": analysis_launches,
+            "seed_counts": seed_counts, "decisions": dict(an_k.decisions),
             "trace_shape": [trace.n_steps, trace.n_processes,
                             len(trace.region_ids)]}
 
@@ -1314,7 +1394,8 @@ def main() -> int:
         err = check_kernel(m, n, k, "cuda")
         t = time_kernel(m, n, k)
         timings[(m, n, k)] = {**err, **t}
-        log(f"[3] m={m} n={n} k={k}: max|kernel-plain| "
+        log(f"[3] m={m} n={n} k={k}: plan {t['plan']}, profiled "
+            f"{t['symbols']}; max|kernel-plain| "
             f"{err['max_abs_err']:.6g} (at most {err['max_ratio_plain']:.3f}"
             f" of an element's scale; tolerance {C_PLAIN}), max|kernel-f64| "
             f"{err['max_abs_err_f64']:.6g} (at most "
@@ -1325,11 +1406,18 @@ def main() -> int:
             f"({t['bound_by']}); kernel device time (profiler) "
             f"{t['device_ms']} ms; batched == per-seed bitwise")
 
-    # 4. corpus on the kernel lane
+    # 4. corpus on the kernel lane, then the fault pin
     corpus = corpus_phase("cuda")
     log(f"[4] corpus: {corpus['entries']} synthetic entries match "
         f"VERDICTS_synthetic.json on the kernel lane; "
-        f"{corpus['launches']} kernel launches; {corpus['wall_s']:.3f} s")
+        f"{corpus['launches']} kernel launches, by seed count k "
+        f"{corpus['seed_counts']}; re-decided on the exact lane "
+        f"{corpus['decisions']}; {corpus['wall_s']:.3f} s")
+    pin = fault_pin_phase("cuda")
+    log(f"[4] fault pin: {pin['n_clusters']} clusters on both lanes "
+        f"(cluster_batch and push/cluster); the kernel lane flagged "
+        f"{pin['flagged']} candidacies and re-decided {pin['redecided']} "
+        f"trials")
 
     # 5. fleet
     fleet = fleet_phase(FLEET_M, FLEET_N, 2048, "cuda")
@@ -1339,8 +1427,13 @@ def main() -> int:
         f"planted {fleet['planted']} named: {fleet['planted_named']}; "
         f"kernel lane {fleet['kernel_lane_s']:.3f} s, numpy lane "
         f"{fleet['numpy_lane_s']:.3f} s; {fleet['launches']} kernel "
-        f"launches; max_memory_allocated "
-        f"{fleet['max_memory_allocated']} bytes")
+        f"launches, by seed count k {fleet['seed_counts']}; "
+        f"max_memory_allocated {fleet['max_memory_allocated']} bytes")
+    fd = fleet["decisions"]
+    log(f"[5] kernel lane: {fd['flagged']} candidacies flagged, "
+        f"{fd['redecided']} trials re-decided on the exact lane in "
+        f"{fd['redecide_s']:.6f} s of host time, {fd['kmeans_redecided']} "
+        f"Lloyd loops re-run")
     log("[5] kernel-lane host breakdown (cProfile, cumulative s, calls):")
     for cum, calls, name in fleet["breakdown"]:
         log(f"    {cum:10.4f} {calls:8d}  {name}")
@@ -1412,7 +1505,8 @@ def main() -> int:
         f"(name, tick s) {served['cpu_clock']}")
     log_breakdown("8", served["breakdown"])
     log(f"[8] verdict, equal on the kernel and numpy lanes "
-        f"({served['analysis_launches']} seed-row launches): "
+        f"({served['analysis_launches']} seed-row launches, by seed count k "
+        f"{served['seed_counts']}; re-decided {served['decisions']}): "
         f"{json.dumps(served['verdict'], sort_keys=True)}")
 
     # 9. the WKV-6 kernel vs plain, float32 and bf16
@@ -1457,7 +1551,8 @@ def main() -> int:
         f"(name, tick s) {rserved['cpu_clock']}")
     log_breakdown("11", rserved["breakdown"])
     log(f"[11] verdict, equal on the kernel and numpy lanes "
-        f"({rserved['analysis_launches']} seed-row launches): "
+        f"({rserved['analysis_launches']} seed-row launches, by seed count k "
+        f"{rserved['seed_counts']}; re-decided {rserved['decisions']}): "
         f"{json.dumps(rserved['verdict'], sort_keys=True)}")
 
     main_t = timings[MAIN_PATH_SHAPE]
@@ -1470,8 +1565,21 @@ def main() -> int:
         "library_ms": main_t["library_ms"],
         "library_device_ms": main_t["library_device_ms"],
         "device_ms": main_t["device_ms"], "shape": list(MAIN_PATH_SHAPE),
+        "plan": main_t["plan"],
+        "ks": {str(k): {key: timings[(FLEET_M, FLEET_N, k)][key] for key in
+                        ("device_ms", "library_device_ms", "bound_ms",
+                         "bound_by", "ms", "library_ms", "plan")}
+               for k in KERNEL_KS},
         "corpus_launches": corpus["launches"],
         "serve_trace_launches": served["analysis_launches"],
+        "seed_counts": {"corpus": corpus["seed_counts"],
+                        "fleet": fleet["seed_counts"],
+                        "serve_gemma": served["seed_counts"],
+                        "serve_rwkv": rserved["seed_counts"]},
+        "decisions": {"corpus": corpus["decisions"],
+                      "fleet": fleet["decisions"],
+                      "serve_gemma": served["decisions"],
+                      "serve_rwkv": rserved["decisions"]},
     }]
     for name, errs, times, main, prefill, shape in (
             ("rmsnorm", rms_err, rms_t, RMS_MAIN, RMS_PREFILL, list),

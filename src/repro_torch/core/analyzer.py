@@ -149,6 +149,15 @@ class AutoAnalyzer:
         self._backend = get_distance_backend(distance_backend, device)
         self.device = getattr(self._backend, "device", None)
 
+    @property
+    def decisions(self) -> Optional[Dict[str, float]]:
+        """The kernel lane's running counts of candidacies its float32
+        bound could not settle and of re-decisions on the exact lane
+        (``flagged``, ``redecided``, ``redecide_s``, ``kmeans_redecided``;
+        see clustering._Certifier), over every analysis of this analyzer;
+        None on the exact lane."""
+        return getattr(self._backend, "decisions", None)
+
     def _cluster(self, vectors) -> ClusterResult:
         return optics_cluster(vectors, threshold_frac=self.threshold_frac,
                               backend=self._backend)

@@ -28,12 +28,20 @@ docs/performance.md has the update math and the memory model.
 This is the PyTorch port of ``repro/core/clustering.py``: the host lanes
 are the reference's code, and the device lane runs on a ``torch.device``
 chosen by the caller (``"cuda"`` unless a caller asks for the CPU).
+
+The kernel lane decides each candidacy ``row <= thr²`` from float32 rows;
+wherever |row - thr²| is within a bound on the float32 error of both
+sides (:class:`_Certifier`), the decision is taken again from the exact
+lane's own float64 rows, so its partitions are the exact lane's.  The
+float64 Lloyd loop on the device is certified the same way
+(:func:`_kmeans_lloyd_torch`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from collections import OrderedDict
+import time
 from typing import (Callable, Dict, List, Optional, Sequence,
                     Tuple, Union)
 
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.distance import row_error_coef
 
 # Severity categories (paper §4.2.2).
 VERY_LOW, LOW, MEDIUM, HIGH, VERY_HIGH = 0, 1, 2, 3, 4
@@ -150,6 +159,7 @@ class _NumpyDistanceBackend:
 
     name = "numpy"
     supports_device = False
+    float32_rows = False
 
     def prepare(self, W: np.ndarray, sq: np.ndarray):
         return (W, sq)
@@ -179,9 +189,14 @@ class _KernelDistanceBackend:
 
     name = "kernel"
     supports_device = True
+    float32_rows = True
 
     def __init__(self, device: torch.device):
         self.device = device
+        # Decisions of every clustering on this backend that its float32
+        # error bound could not settle, re-decided on the exact lane.
+        self.decisions = _decision_counts()
+        self.decisions["kmeans_redecided"] = 0
 
     def prepare(self, W: np.ndarray, sq: np.ndarray):
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -232,6 +247,75 @@ def _is_device_backend(backend: DistanceBackendSpec) -> bool:
     return bool(getattr(backend, "supports_device", False))
 
 
+# -- certified decisions of the kernel lane ----------------------------------
+#
+# A float32 base row differs from the exact lane's float64 one by at most
+# row_error_coef(n)·(|W_p|² + |W_q|²) (kernels/distance.py states the
+# derivation).  On the host the kernel lane adds the same float64 stack
+# and trial deltas as the exact lane, each addition rounding by at most
+# 2^-53 of a partial sum below |R| + the deltas' magnitudes: F64_ERR per
+# stack level covers both lanes.  The bound is itself computed in floating
+# point: MARGIN covers its rounding and TINY float32 underflow.
+F64_ERR = 2.0 ** -50
+MARGIN = 1.0 + 2.0 ** -10
+TINY = 2.0 ** -120
+
+
+def _decision_counts() -> Dict[str, float]:
+    """Candidacies flagged as beyond the float32 bound, trials (or
+    clusterings) re-decided on the exact lane, and the host seconds the
+    re-decisions took."""
+    return {"flagged": 0, "redecided": 0, "redecide_s": 0.0}
+
+
+class _Certifier:
+    """Certifies a float32 lane's candidacy decisions against the exact
+    lane and supplies the exact lane's rows for those it cannot settle:
+    ``_NumpyDistanceBackend.seed_rows`` on the float64 base matrix, the
+    exact lane's own arithmetic (a few recent rows are kept)."""
+
+    def __init__(self, W0: np.ndarray, sq0: np.ndarray,
+                 sinks: Sequence[Dict]):
+        self.W0, self.sq0 = W0, sq0
+        self.coef = row_error_coef(W0.shape[1])
+        self._exact = _NumpyDistanceBackend()
+        self._rows: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._sinks = sinks
+
+    def base_bound(self, p: int) -> np.ndarray:
+        """Bound on |float32 base row - exact base row| of seed p."""
+        return self.coef * (self.sq0[p] + self.sq0)
+
+    def exact_base_row(self, p: int) -> np.ndarray:
+        row = self._rows.get(p)
+        if row is None:
+            row = self._exact.seed_rows((self.W0, self.sq0), [p])[0]
+            self._rows[p] = row
+            if len(self._rows) > 16:
+                self._rows.popitem(last=False)
+        return row
+
+    def count(self, flagged: int, trials: int, seconds: float) -> None:
+        for st in self._sinks:
+            st["flagged"] += flagged
+            st["redecided"] += trials
+            st["redecide_s"] += seconds
+
+    def settle(self, row: np.ndarray, thr2: float, open_: np.ndarray,
+               bound: np.ndarray, exact: Callable[[], np.ndarray]
+               ) -> np.ndarray:
+        """``row`` with each element of ``open_`` whose decision
+        ``row <= thr2`` the bound on |row - exact row| cannot settle taken
+        from ``exact()``, the exact lane's row."""
+        fl = open_[np.abs(row[open_] - thr2) <= bound[open_] * MARGIN + TINY]
+        if fl.size:
+            t0 = time.perf_counter()
+            row = row.copy()
+            row[fl] = exact()[fl]
+            self.count(fl.size, 1, time.perf_counter() - t0)
+        return row
+
+
 def _expand_column_values(values, m: int, n_cols: int) -> np.ndarray:
     """Resolve toggle values to an explicit (m, n_cols) array.
 
@@ -255,12 +339,16 @@ def _greedy_cluster(m: int,
                     sq: np.ndarray,
                     threshold: Optional[float],
                     threshold_frac: float,
-                    count_threshold: int) -> ClusterResult:
+                    count_threshold: int,
+                    settle: Optional[Callable] = None) -> ClusterResult:
     """The simplified-OPTICS greedy pass over lazily materialized D² rows.
 
     ``row_of(p)`` returns the squared distances from point p to all points
     under the *current* matrix; only rows of seed points are ever computed,
     so a clustering costs O(#clusters · m) beyond the cached state.
+    ``settle(p, row, thr², unassigned)``, given for float32 rows, returns
+    the row with every element whose decision its error bound cannot
+    settle replaced by the exact lane's value.
     """
     labels = np.full(m, -1, dtype=np.int64)
     n_clusters = 0
@@ -276,6 +364,8 @@ def _greedy_cluster(m: int,
         # `<=` (not the paper's strict `<`) so identical vectors cluster
         # together even when the seed norm — and hence the threshold — is 0.
         row = row_of(p)
+        if settle is not None:
+            row = settle(p, row, thr * thr, unassigned)
         cand = unassigned[row[unassigned] <= thr * thr]
         cand = cand[cand != p]
         if cand.size >= count_threshold:
@@ -325,8 +415,17 @@ def optics_cluster(
         # O(#clusters · m · n) — no m×m materialization, no pair loops.
         return be.seed_rows(handle, [p])[0]
 
+    settle = None
+    if getattr(be, "float32_rows", False):
+        cert = _Certifier(v, sq, [be.decisions])
+
+        def settle(p, row, thr2, unassigned):
+            return cert.settle(row, thr2, unassigned[unassigned != p],
+                               cert.base_bound(p),
+                               lambda: cert.exact_base_row(p))
+
     return _greedy_cluster(m, row_of, sq, threshold, threshold_frac,
-                           count_threshold)
+                           count_threshold, settle)
 
 
 class IncrementalClusterState:
@@ -395,7 +494,14 @@ class IncrementalClusterState:
         # it): backend calls, total rows fetched, per-seed fetch counts —
         # the dedup contract tests/test_device_lockstep.py pins.
         self.fetch_stats: Dict[str, object] = {
-            "calls": 0, "rows": 0, "per_seed": {}}
+            "calls": 0, "rows": 0, "per_seed": {}, **_decision_counts()}
+        # Float32 rows (the kernel lane): every candidacy is certified
+        # against the exact lane, and the unsettled ones re-decided there.
+        self._cert: Optional[_Certifier] = None
+        if getattr(self._backend, "float32_rows", False):
+            self._cert = _Certifier(self._W0, self._sq0,
+                                    [self.fetch_stats,
+                                     self._backend.decisions])
         self._device = None   # DeviceLockstep | False (probed) | None
         # stack of (cols, old values, installed values, saved sq) — sq is
         # replaced, not updated in place, so popping restores it
@@ -404,6 +510,9 @@ class IncrementalClusterState:
         # telescope correctly.
         self._stack: List[Tuple[List[int], np.ndarray, np.ndarray,
                                 np.ndarray]] = []
+        # Per stack level, |old|² + |new|² of each row (certified lane
+        # only): the magnitudes its float64 deltas are rounded against.
+        self._mass: List[np.ndarray] = []
 
     @property
     def matrix(self) -> np.ndarray:
@@ -443,11 +552,14 @@ class IncrementalClusterState:
         old = self._W[:, cols].copy()
         new = _expand_column_values(values, self._m, len(cols))
         saved_sq = self._sq
-        self._sq = saved_sq - np.einsum("ij,ij->i", old, old) \
-            + np.einsum("ij,ij->i", new, new)
+        eo = np.einsum("ij,ij->i", old, old)
+        en = np.einsum("ij,ij->i", new, new)
+        self._sq = saved_sq - eo + en
         if self._W is not self._W0:
             self._W[:, cols] = new
         self._stack.append((cols, old, new, saved_sq))
+        if self._cert is not None:
+            self._mass.append(eo + en)
 
     def pop(self) -> None:
         """Revert the most recent :meth:`push` exactly."""
@@ -455,6 +567,8 @@ class IncrementalClusterState:
         if self._W is not self._W0:
             self._W[:, cols] = old
         self._sq = saved_sq
+        if self._cert is not None:
+            self._mass.pop()
 
     def _ensure_base_rows(self, ps: Sequence[int]) -> None:
         """Fetch (in one stacked backend call) and LRU-cache the base D²
@@ -483,13 +597,14 @@ class IncrementalClusterState:
             self._ensure_base_rows([p])
         return self._rows[p]
 
-    def _row_raw(self, p: int) -> np.ndarray:
+    def _row_raw(self, p: int, exact: bool = False) -> np.ndarray:
         """Base D² row of p plus the per-level stack deltas, *without* the
         final clamp (read-only when the stack is empty).  Each level
         contributes the delta between the values it found and the values
         it installed; levels re-toggling a column telescope
-        (old_{k+1} == new_k)."""
-        row = self._base_row(p)
+        (old_{k+1} == new_k).  ``exact``: from the exact lane's float64
+        base row (the certified lane's re-decisions)."""
+        row = self._cert.exact_base_row(p) if exact else self._base_row(p)
         if not self._stack:
             return row
         row = row.copy()
@@ -500,14 +615,80 @@ class IncrementalClusterState:
                 - np.einsum("ij,ij->i", do, do)
         return row
 
-    def _row(self, p: int) -> np.ndarray:
+    def _row(self, p: int, exact: bool = False) -> np.ndarray:
         """D² row of point p under the current matrix,
         O(m · columns-toggled)."""
-        row = self._row_raw(p)
+        row = self._row_raw(p, exact)
         if not self._stack:
             return row
         np.maximum(row, 0.0, out=row)
         return row
+
+    def _row_bound(self, p: int) -> np.ndarray:
+        """Bound on |this lane's row of p - the exact lane's| under the
+        current stack: the float32 base row's, plus both lanes' float64
+        rounding of the stack deltas (a level's |dn|² + |do|² is at most
+        2·(mass_q + mass_p))."""
+        mag = self._base_row(p).copy()
+        for mass in self._mass:
+            mag += 2.0 * (mass + mass[p])
+        return self._cert.base_bound(p) + \
+            F64_ERR * (len(self._stack) + 2) * mag
+
+    def _settle(self, p: int, row: np.ndarray, thr2: float,
+                unassigned: np.ndarray) -> np.ndarray:
+        """The host greedy pass's certification (see _greedy_cluster)."""
+        return self._cert.settle(row, thr2, unassigned[unassigned != p],
+                                 self._row_bound(p),
+                                 lambda: self._row(p, exact=True))
+
+    def _trial(self, p: int, cols: List[int], values, need_sq: bool):
+        """One trial's delta to the D² row of seed p (toggling ``cols`` to
+        ``values``, None meaning zeros, on top of the current matrix), the
+        seed's squared norm under the trial (or None) and |delta|'s bound
+        |do|² + |dn|².  Both lanes form them with these operations: a
+        C-order snapshot of the toggled columns, as ``push`` takes it,
+        contracted by the same ``"ij,ij->i"`` einsum (a fancy column slice
+        is F-ordered, and a stacked 3-D contraction accumulates in another
+        order; either ~1-ulp difference near zero could flip a partition
+        on float data)."""
+        old = self._W[:, cols].copy()
+        do = old - old[p]
+        db = np.einsum("ij,ij->i", do, do)
+        if values is None:
+            # == einsum over the expanded zero block: exactly +0.0
+            delta = 0.0 - db
+            new = None
+            mass = db
+        else:
+            new = _expand_column_values(values, self._m, len(cols))
+            dn = new - new[p]
+            en = np.einsum("ij,ij->i", dn, dn)
+            delta = en - db
+            mass = en + db
+        sqp = None
+        if need_sq:
+            sq_t = self._sq - np.einsum("ij,ij->i", old, old)
+            if new is not None:
+                sq_t = sq_t + np.einsum("ij,ij->i", new, new)
+            sqp = sq_t[p]
+        return delta, sqp, mass
+
+    def _thr(self, sqp) -> float:
+        """The greedy radius of a seed whose squared norm is ``sqp``."""
+        if self._threshold is not None:
+            return float(self._threshold)
+        return self._threshold_frac * math.sqrt(max(float(sqp), 0.0))
+
+    def _exact_trial(self, p: int, cols: List[int]):
+        """The exact lane's D² row of seed p and squared radius under the
+        zero-toggle of ``cols`` on the base matrix, in ``_batch_round``'s
+        arithmetic on the float64 base row: what the lockstep rounds
+        re-decide their unsettled candidacies from."""
+        delta, sqp, _ = self._trial(p, cols, None, self._threshold is None)
+        thr = self._thr(sqp)
+        return np.maximum(self._row_raw(p, exact=True) + delta, 0.0), \
+            thr * thr
 
     def _device_lockstep(self):
         """The :class:`~repro_torch.core.lockstep.DeviceLockstep` twin for
@@ -521,7 +702,8 @@ class IncrementalClusterState:
                 self._device = DeviceLockstep(
                     self._backend, self._handle, self._threshold,
                     self._threshold_frac, self._count_threshold,
-                    self.fetch_stats)
+                    self.fetch_stats, exact=self._exact_trial,
+                    coef=self._cert.coef, count=self._cert.count)
             else:
                 self._device = False
         return self._device or None
@@ -545,7 +727,8 @@ class IncrementalClusterState:
                 return self._device_results(dev.cluster_batch([[]]))[0]
         return _greedy_cluster(self._m, self._row, self._sq,
                                self._threshold, self._threshold_frac,
-                               self._count_threshold)
+                               self._count_threshold,
+                               self._settle if self._cert else None)
 
     def cluster_batch(self, toggles: Sequence[Tuple[Sequence[int], object]]
                       ) -> List[ClusterResult]:
@@ -623,47 +806,32 @@ class IncrementalClusterState:
         fresh cluster per trial, exactly like the sequential greedy pass.
 
         Each trial's delta runs through the *same* operations as the
-        sequential path — a C-order snapshot of the toggled columns
-        (exactly as ``push`` takes it: a fancy column slice is F-ordered
-        and einsum's accumulation differs by operand layout) contracted
-        by the same ``"ij,ij->i"`` einsum shape (a stacked 3-D
-        contraction accumulates in a different order).  Either ~1-ulp
-        difference near zero could flip a partition on float data.  The
-        stacking into the (trials, m) tensor happens after, for the
-        vectorized neighbourhood/assignment phase (exact integer and
-        comparison ops)."""
+        sequential path (:meth:`_trial`).  The stacking into the
+        (trials, m) tensor happens after, for the vectorized
+        neighbourhood/assignment phase (exact integer and comparison
+        ops).  On the certified lane each trial's unsettled candidacies
+        are decided from the exact lane's row."""
         m = row_p.shape[0]
         need_sq = self._threshold is None       # thresholds from seed norms
         rows = np.empty((len(ts), m))
         sqp = np.empty(len(ts))
+        mass = []
         for i, t in enumerate(ts):
-            old = self._W[:, cols_l[t]].copy()
-            do = old - old[p]
-            db = np.einsum("ij,ij->i", do, do)
-            if vals_l[t] is None:
-                # == einsum over the expanded zero block: exactly +0.0
-                delta = 0.0 - db
-                new = None
-            else:
-                new = _expand_column_values(vals_l[t], m, len(cols_l[t]))
-                dn = new - new[p]
-                delta = np.einsum("ij,ij->i", dn, dn) - db
+            delta, s, mass_t = self._trial(p, cols_l[t], vals_l[t], need_sq)
             rows[i] = row_p + delta
+            mass.append(mass_t)
             if need_sq:
-                sq_t = self._sq - np.einsum("ij,ij->i", old, old)
-                if new is not None:
-                    sq_t = sq_t + np.einsum("ij,ij->i", new, new)
-                sqp[i] = sq_t[p]
+                sqp[i] = s
         np.maximum(rows, 0.0, out=rows)
         ts_arr = np.asarray(ts, dtype=np.int64)
         if self._threshold is not None:
             thr = np.full(len(ts), float(self._threshold))
         else:
-            thr = np.array([self._threshold_frac *
-                            math.sqrt(max(float(s), 0.0))
-                            for s in sqp])
+            thr = np.array([self._thr(s) for s in sqp])
         used_thr[ts_arr] = np.maximum(used_thr[ts_arr], thr)
         sub = labels[ts_arr]                           # (k, m) copy
+        if self._cert is not None:
+            self._settle_batch(ts, p, rows, thr, mass, sub, cols_l, vals_l)
         cand = (sub < 0) & (rows <= (thr * thr)[:, None])
         cand[:, p] = False
         counts = cand.sum(axis=1)
@@ -673,6 +841,22 @@ class IncrementalClusterState:
         sub[:, p] = newlab                             # seed always labeled
         labels[ts_arr] = sub
         n_clusters[ts_arr] += 1
+
+    def _settle_batch(self, ts, p, rows, thr, mass, sub, cols_l,
+                      vals_l) -> None:
+        """Take, trial by trial, the elements of ``rows`` whose candidacy
+        the bound cannot settle from the exact lane's rows."""
+        bound = self._row_bound(p)
+        scale = F64_ERR * (len(self._stack) + 2)
+        for i, t in enumerate(ts):
+            open_ = np.nonzero(sub[i] < 0)[0]
+
+            def exact(t=t):
+                delta, _, _ = self._trial(p, cols_l[t], vals_l[t], False)
+                return np.maximum(self._row_raw(p, exact=True) + delta, 0.0)
+            rows[i] = self._cert.settle(rows[i], thr[i] * thr[i],
+                                        open_[open_ != p],
+                                        bound + scale * mass[i], exact)
 
 
 def is_similar(vectors: np.ndarray, **kw) -> bool:
@@ -717,32 +901,83 @@ def dissimilarity_severity(result: ClusterResult, vectors: np.ndarray) -> float:
     return min(1.0, frac + spread / (scale + 1e-30))
 
 
+# np.allclose's and torch.allclose's default tolerances.
+_RTOL, _ATOL = 1e-5, 1e-8
+
+
 def _kmeans_lloyd_torch(x: np.ndarray, centroids: np.ndarray,
                         n_iter: int, device: torch.device
-                        ) -> Tuple[np.ndarray, np.ndarray]:
+                        ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """Run the Lloyd iterations of :func:`kmeans_1d` as a float64 loop on
-    ``device`` and return (centroids, labels).  Mirrors the numpy loop's
+    ``device`` and return (centroids, labels), or None where a decision
+    may differ from the exact numpy loop's.  Mirrors the numpy loop's
     semantics exactly: labels are the argmin against the centroids
     *entering* the convergence iteration, the converged centroids keep
     their pre-update values, and convergence is ``allclose`` at its
     default tolerances.  Cluster sums are a masked row reduction rather
-    than a scatter-add, so they do not depend on the order of atomics."""
+    than a scatter-add, so they do not depend on the order of atomics.
+
+    They are summed in another order than ``np.bincount``'s, so while both
+    loops hold the same labels their centroids differ by at most
+    eps = (n + 1)·2⁻⁵²·max|x| (two sums of n terms, two divisions), and
+    the distances and convergence gaps they compute by at most
+    delta = eps + 2⁻⁵⁰·max|x|.  Each iteration checks that its argmin
+    beats the runner-up by more than 2·delta and that every convergence
+    gap |new - cent| is more than 3·delta from its tolerance, and the end
+    that the centroids' ranks are apart by more than 2·eps: then every
+    decision is the numpy loop's, iteration by iteration.  Otherwise it
+    returns None, and the caller re-decides on the numpy loop."""
     xv = torch.as_tensor(x, dtype=torch.float64, device=device)
     cent = torch.as_tensor(centroids, dtype=torch.float64, device=device)
     k = cent.shape[0]
+    top = float(np.abs(x).max())
+    eps = (x.size + 1) * 2.0 ** -52 * top
+    delta = eps + 2.0 ** -50 * top
     ids = torch.arange(k, device=device)[:, None]
     lab = torch.zeros(xv.shape[0], dtype=torch.int64, device=device)
     for _ in range(n_iter):
-        lab = (xv[:, None] - cent[None, :]).abs().argmin(dim=1)
+        d = (xv[:, None] - cent[None, :]).abs()
+        lab = d.argmin(dim=1)
+        near = d.topk(min(2, k), dim=1, largest=False).values
+        unsure = (near[:, -1] - near[:, 0] <= 2.0 * delta).any() if k > 1 \
+            else torch.zeros((), dtype=torch.bool, device=device)
         member = lab[None, :] == ids                       # (k, n)
         counts = member.sum(dim=1).to(torch.float64)
         sums = torch.where(member, xv[None, :], 0.0).sum(dim=1)
         # Empty clusters keep their previous centroid.
         new = torch.where(counts > 0, sums / counts.clamp_min(1.0), cent)
-        if torch.allclose(new, cent):
+        gap = (new - cent).abs() - (_ATOL + _RTOL * cent.abs())
+        far = gap > 3.0 * delta
+        unsure |= ~far.any() & (gap.abs() <= 3.0 * delta).any()
+        converged, unsure = torch.stack([(gap <= 0).all(), unsure]).tolist()
+        if unsure:
+            return None
+        if converged:
             break
         cent = new
-    return cent.cpu().numpy(), lab.cpu().numpy()
+    cent_h = cent.cpu().numpy()
+    if k > 1 and not (np.diff(np.sort(cent_h)) > 2.0 * eps).all():
+        return None
+    return cent_h, lab.cpu().numpy()
+
+
+def _kmeans_lloyd_numpy(x: np.ndarray, centroids: np.ndarray,
+                        n_iter: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The exact lane's Lloyd iterations of :func:`kmeans_1d`."""
+    k = centroids.shape[0]
+    lab = np.zeros(x.size, dtype=np.int64)
+    for _ in range(n_iter):
+        d = np.abs(x[:, None] - centroids[None, :])
+        lab = np.argmin(d, axis=1)
+        counts = np.bincount(lab, minlength=k)
+        sums = np.bincount(lab, weights=x, minlength=k)
+        # Empty clusters keep their previous centroid.
+        new = np.where(counts > 0, sums / np.maximum(counts, 1),
+                       centroids)
+        if np.allclose(new, centroids):
+            break
+        centroids = new
+    return centroids, lab
 
 
 def kmeans_1d(values: np.ndarray, k: int, n_iter: int = 100,
@@ -754,8 +989,10 @@ def kmeans_1d(values: np.ndarray, k: int, n_iter: int = 100,
     ``np.bincount`` (no per-cluster Python loop).
 
     With a device backend the Lloyd iterations run as a float64 loop on
-    the backend's device (:func:`_kmeans_lloyd_torch`); the quantile init
-    and the final rank-by-centroid stay on host either way."""
+    the backend's device (:func:`_kmeans_lloyd_torch`), and a call whose
+    decisions that loop cannot certify runs the numpy loop instead; the
+    quantile init and the final rank-by-centroid stay on host either
+    way."""
     x = np.asarray(values, dtype=np.float64).ravel()
     n = x.size
     if n == 0:
@@ -767,22 +1004,13 @@ def kmeans_1d(values: np.ndarray, k: int, n_iter: int = 100,
         return np.array([mapping[val] for val in x], dtype=np.int64)
     # Quantile init is deterministic and robust for 1-D data.
     centroids = np.quantile(x, np.linspace(0, 1, k))
+    got = None
     if _is_device_backend(backend):
-        device = get_distance_backend(backend).device
-        centroids, lab = _kmeans_lloyd_torch(x, centroids, n_iter, device)
-    else:
-        lab = np.zeros(n, dtype=np.int64)
-        for _ in range(n_iter):
-            d = np.abs(x[:, None] - centroids[None, :])
-            lab = np.argmin(d, axis=1)
-            counts = np.bincount(lab, minlength=k)
-            sums = np.bincount(lab, weights=x, minlength=k)
-            # Empty clusters keep their previous centroid.
-            new = np.where(counts > 0, sums / np.maximum(counts, 1),
-                           centroids)
-            if np.allclose(new, centroids):
-                break
-            centroids = new
+        be = get_distance_backend(backend)
+        got = _kmeans_lloyd_torch(x, centroids, n_iter, be.device)
+        if got is None and hasattr(be, "decisions"):
+            be.decisions["kmeans_redecided"] += 1
+    centroids, lab = got or _kmeans_lloyd_numpy(x, centroids, n_iter)
     order = np.argsort(centroids)
     rank = np.empty(k, dtype=np.int64)
     rank[order] = np.arange(k)

@@ -14,9 +14,11 @@ LAUNCHES: Dict[str, int] = {"multi_seed_rows": 0, "rmsnorm": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SEED_COUNTS.clear()
 
 
-from .distance import multi_seed_rows, multi_seed_rows_ref  # noqa: E402
+from .distance import (SEED_COUNTS, multi_seed_rows,  # noqa: E402
+                       multi_seed_rows_ref)
 from .flash_attention import (flash_attention,  # noqa: E402
                               flash_attention_ref)
 from .rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402

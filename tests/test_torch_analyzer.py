@@ -97,6 +97,26 @@ def test_fleet_shaped_trace_matches_reference(lane, tmp_path):
     assert set(planted) <= named
 
 
+def test_fleet_shaped_trace_flags_no_candidacy(tmp_path):
+    """The kernel lane re-decides only candidacies its float32 error bound
+    cannot settle; a fleet-shaped trace, whose clusters stand far apart,
+    has none.  The paper's ST scenario has one clustering with 7 (its
+    synthetic vectors sit on the radius)."""
+    cs = _chip_smoke()
+    _, col, _ = cs.fleet_collector(256, 32, 32)
+    trace = col.collect_trace()
+    an = AutoAnalyzer(trace.tree(), distance_backend="kernel", device="cpu")
+    an.analyze_trace(trace)
+    assert an.decisions == {"flagged": 0, "redecided": 0, "redecide_s": 0.0,
+                            "kmeans_redecided": 0}
+    tree, rm = st_scenario()
+    an = AutoAnalyzer(tree, distance_backend="kernel", device="cpu")
+    an.analyze(rm)
+    assert (an.decisions["flagged"], an.decisions["redecided"]) == (7, 1)
+    assert AutoAnalyzer(trace.tree(), distance_backend="numpy").decisions \
+        is None
+
+
 @pytest.mark.parametrize("lane", LANES, ids=LANE_IDS)
 def test_synthetic_snapshot_equals_committed_verdicts(lane):
     from repro_torch.cli.snapshot_verdicts import drift, snapshot
@@ -194,8 +214,15 @@ def test_chip_smoke_phases_rehearsed_on_cpu():
     assert err["max_ratio_plain"] <= cs.C_PLAIN
     corpus = cs.corpus_phase("cpu")
     assert corpus["entries"] == 19
+    # On the CPU the wrapper launches nothing: no seed counts.
+    assert corpus["seed_counts"] == {}
+    assert set(corpus["decisions"]) == {"flagged", "redecided",
+                                        "redecide_s", "kmeans_redecided"}
+    pin = cs.fault_pin_phase("cpu")
+    assert pin["n_clusters"] == 2 and pin["redecided"] >= 1
     fleet = cs.fleet_phase(512, 32, 64, "cpu")
     assert fleet["planted_named"]
     assert fleet["dissimilarity_ccrs"] == [fleet["planted"][0]]
+    assert fleet["decisions"]["redecided"] == 0
     ms, by = cs.bound_ms(16384, 128, 8)
     assert by == "bytes" and abs(ms - 8978464 / 3.35e12 * 1e3) < 1e-12

@@ -125,12 +125,10 @@ def test_depth1_sweep_each_unique_seed_fetched_once():
 
 
 def test_row_cache_capacity_doubles():
-    from repro_torch.core.lockstep import DeviceLockstep
     W = _workload(m=80, n=4, seed=3)
     be = _kernel()
-    h = be.prepare(W, np.einsum("ij,ij->i", W, W))
-    dl = DeviceLockstep(be, h, None, 0.1, 1,
-                        {"calls": 0, "rows": 0, "per_seed": {}})
+    st = PortState(W, backend=be)
+    dl, h = st._device_lockstep(), st._handle
     dl._ensure_rows([0, 1, 2])
     assert dl._rcache.shape == (8, 80)
     dl._ensure_rows(list(range(3, 12)))
@@ -207,3 +205,131 @@ def test_torch_lloyd_convergence_semantics():
         c = new
     np.testing.assert_array_equal(lab, want_lab)
     np.testing.assert_allclose(cent, c, rtol=0, atol=1e-12)
+
+
+# -- the kernel lane's certified decisions ----------------------------------
+
+# A trace's (m, n) matrix on which the kernel lane split from the exact lane
+# (a CPU-timed serving trace's IncrementalClusterState): zeroing columns 0
+# and 1 together leaves an exact D² of 5.68e-8 against a squared radius of
+# 2.62e-9, which float32 rows of base norm 0.71 computed as about 0.
+PIN = np.array([
+    [1.4126013409999993, 0.8884826409999995, 0.0, 5.1191000056860503e-04],
+    [0.67398050800000009, 0.48293688799999934, 0.0,
+     2.7357000044503366e-04]])
+
+
+def test_fault_pin_kernel_lane_decides_as_the_exact_lane():
+    want = RefState(PIN).cluster_batch([([0, 1], 0.0)])[0]
+    assert want.n_clusters == 2
+    st = PortState(PIN, backend=_kernel())
+    got = st.cluster_batch([([0, 1], 0.0)])[0]
+    assert st._device_lockstep() is not None
+    assert got.n_clusters == 2 and got.same_partition(want)
+    assert st.fetch_stats["flagged"] >= 1
+    assert st.fetch_stats["redecided"] >= 1
+    # push/cluster: the host greedy pass on float32 base rows.
+    st = PortState(PIN, backend=_kernel())
+    st.push([0, 1], 0.0)
+    assert st.cluster().same_partition(want)
+    assert st.fetch_stats["flagged"] >= 1
+    zeroed = PIN.copy()
+    zeroed[:, [0, 1]] = 0.0
+    assert port_cl.optics_cluster(zeroed, backend=_kernel()).n_clusters == 2
+
+
+def test_certified_lanes_count_into_the_backend():
+    be = _kernel()
+    for _ in range(2):
+        PortState(PIN, backend=be).cluster_batch([([0, 1], 0.0)])
+    assert be.decisions["redecided"] >= 2
+    assert be.decisions["flagged"] >= be.decisions["redecided"]
+    assert be.decisions["redecide_s"] >= 0.0
+    np_state = PortState(PIN)
+    np_state.cluster_batch([([0, 1], 0.0)])
+    assert np_state.fetch_stats["flagged"] == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_kernel_lane_toggle_of_every_column_matches_reference(seed):
+    """Zeroing every column leaves exact zeros: every candidacy is float32
+    residue, and every one is re-decided on the exact lane."""
+    W = _workload(m=30, n=4, seed=seed)
+    toggles = [([0, 1, 2, 3], 0.0), ([1, 2, 3], 0.0)]
+    got = PortState(W, backend=_kernel()).cluster_batch(toggles)
+    want = RefState(W).cluster_batch(toggles)
+    for g, w in zip(got, want):
+        assert g.n_clusters == w.n_clusters and g.same_partition(w)
+
+
+def _cancelling(seed: int, m: int, n: int, n_tog: int):
+    """Points whose first ``n_tog`` columns carry nearly all of each
+    distance and norm (values near 1), the rest residuals of scale 1e-4
+    to 1e-2, in clumps, so that zeroing the large columns leaves
+    partitions decided by values ~1e-6 of the base norms."""
+    rng = np.random.default_rng(seed)
+    W = np.empty((m, n))
+    W[:, :n_tog] = 0.5 + rng.random((m, n_tog))
+    res = 10.0 ** rng.uniform(-4, -2)
+    clumps = rng.integers(1, 4)
+    centre = rng.random((clumps, n - n_tog))
+    W[:, n_tog:] = res * (centre[rng.integers(0, clumps, m)]
+                          + 0.05 * rng.random((m, n - n_tog)))
+    return W
+
+
+try:
+    from hypothesis import given, settings, strategies as hst
+except ImportError:                          # pragma: no cover
+    hst = None
+
+
+if hst is not None:
+    @settings(max_examples=60, deadline=None, derandomize=True,
+              database=None)
+    @given(seed=hst.integers(0, 2 ** 31 - 1), m=hst.integers(2, 12),
+           n=hst.integers(2, 6), frac=hst.sampled_from([0.02, 0.1, 0.3]))
+    def test_property_cancelling_toggles_split_no_lane(seed, m, n, frac):
+        """Random matrices whose toggled columns hold nearly all of each
+        distance, random single and composite zero-toggles: the kernel
+        lane's partitions equal the exact lane's through cluster_batch,
+        push/cluster and Algorithm 2."""
+        from repro.core.search import find_dissimilarity_bottlenecks as ref_f
+        from repro_torch.core import RegionTree
+        from repro_torch.core.search import find_dissimilarity_bottlenecks
+        n_tog = 1 + seed % (n - 1)
+        W = _cancelling(seed, m, n, n_tog)
+        rng = np.random.default_rng(seed + 1)
+        toggles = [(list(range(n_tog)), 0.0)] + \
+            [([int(c) for c in rng.choice(n, size=rng.integers(1, n),
+                                          replace=False)], 0.0)
+             for _ in range(3)]
+        got = PortState(W, threshold_frac=frac,
+                        backend=_kernel()).cluster_batch(toggles)
+        want = RefState(W, threshold_frac=frac).cluster_batch(toggles)
+        for (cols, _), g, w in zip(toggles, got, want):
+            assert g.n_clusters == w.n_clusters and g.same_partition(w)
+            st = PortState(W, threshold_frac=frac, backend=_kernel())
+            st.push(cols, 0.0)
+            assert st.cluster().same_partition(w)
+        tree = RegionTree("P")
+        rids = [tree.add(f"r{j}").region_id for j in range(n)]
+        a = find_dissimilarity_bottlenecks(tree, W, rids, threshold_frac=frac,
+                                           backend=_kernel())
+        b = ref_f(tree, W, rids, threshold_frac=frac)
+        assert (a.exists, a.ccrs, a.cccrs) == (b.exists, b.ccrs, b.cccrs)
+        assert a.baseline.same_partition(b.baseline)
+
+
+def test_lloyd_loop_certified_or_redecided():
+    """A value exactly halfway between two centroids: the device loop
+    cannot certify its argmin and returns None; kmeans_1d re-decides on
+    the numpy loop and counts it."""
+    x = np.array([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0])
+    cent0 = np.array([0.0, 2.0, 6.0])        # 1.0 is halfway from 0 and 2
+    assert port_cl._kmeans_lloyd_torch(x, cent0, 100, CPU) is None
+    be = _kernel()
+    vals = np.array([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0])
+    np.testing.assert_array_equal(port_cl.kmeans_1d(vals, 5, backend=be),
+                                  ref_cl.kmeans_1d(vals, 5))
+    assert be.decisions["kmeans_redecided"] >= 1
