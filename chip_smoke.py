@@ -68,10 +68,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    call), every model call launching 65 RMSNorms and 32 WKV-6s; one
    lane's decode call profiled (its RMSNorms on the row-per-block kernel,
    its WKV-6s on the decode kernel); the served trace analyzed on both
-   lanes with equal verdicts.
+   lanes with equal verdicts.  The server spools its steps to
+   ``build/spool_rwkv`` (``--spool-dir``) while a child process started
+   before it, ``python -m repro_torch.cli.watch_trace build/spool_rwkv
+   --follow --json --device cuda``, tails the spool on the kernel lane:
+   the child exits 0, prints a window verdict before the server's last
+   engine step, its verdicts equal the exact lane's replay of the
+   finalized spool, and the finalized spool is the served trace; each
+   window's lag from its segment's flush is printed;
+12. runtime collector: ``runtime/compute-straggler`` and
+   ``runtime/data-skew`` through the port's corpus on the card, kernel
+   lane, each naming rt/solver; each region's wall, CUDA-event device
+   time, ``cost_of`` FLOPs and bytes and H100 roofline bound;
+13. the fleet shape streamed: phase 5's collector for 4 steps, the
+   straggler's onset at step 2, spooled one step a segment under
+   ``build/spool_fleet`` (deleted after), read by ``OnlineAnalyzer`` in
+   2-step windows with persist 1 on the kernel and numpy lanes: equal
+   window verdicts, dissimilarity onset window 1 on both;
+14. chaos and fleet: the five spool ``chaos/*`` and three ``fleet/*``
+   corpus entries at seeds 0, 1 and 7 on the kernel lane, each passing
+   with the reference's outcome (``CHAOS_OUTCOMES``).
 
-Phases 4, 5, 8 and 11 count the kernels' launches from 0 and fail if the
-main path never launched them; they also record the seed-row launches by
+Phases 4, 5, 8, 11, 12, 13 and 14 count the kernels' launches from 0 and
+fail if the main path never launched them (phase 11's tail counts its own
+in the child); they also record the seed-row launches by
 seed count k (``SEED_COUNTS``) and the kernel lane's candidacies that its
 float32 error bound could not settle and re-decided on the exact lane
 (``AutoAnalyzer.decisions``).  A served trace whose verdicts differ
@@ -87,11 +107,14 @@ from __future__ import annotations
 
 import importlib
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -452,11 +475,15 @@ def fault_pin_phase(device) -> dict:
 
 # -- phase 5 ---------------------------------------------------------------
 
-def fleet_collector(m: int, n: int, straggler_procs: int):
+def fleet_collector(m: int, n: int, straggler_procs: int,
+                    n_steps: int = 1, onset_step: int | None = None):
     """A flat FLEET/cr1..cr<n> tree of balanced regions with distinct
     times, a compute straggler (the first ``straggler_procs`` shards do 5x
     the work of FLEET/cr<43>) and an I/O hotspot on FLEET/cr<90>, both
-    region ids scaled down proportionally when n < 128."""
+    region ids scaled down proportionally when n < 128.  With
+    ``onset_step`` the straggler's shards run at full speed until that
+    step and then slow down toward 5x by the last of ``n_steps`` (the
+    ``ThermalThrottleDrift`` archetype); the hotspot stands from step 0."""
     from repro_torch.core import RegionBehavior, RegionTree
     from repro_torch.scenarios import FaultedSyntheticCollector, faults as F
     tree = RegionTree("FLEET")
@@ -469,11 +496,15 @@ def fleet_collector(m: int, n: int, straggler_procs: int):
             comm_bytes=1e7)
     slow = f"FLEET/cr{max(1, 43 * n // 128)}"
     hot = f"FLEET/cr{max(2, 90 * n // 128)}"
-    faults = (F.ComputeStraggler(slow, procs=tuple(range(straggler_procs)),
-                                 factor=5.0),
-              F.IOHotspot(hot, extra_bytes=100e9, slowdown=6.0))
+    procs = tuple(range(straggler_procs))
+    straggler = (F.ComputeStraggler(slow, procs=procs, factor=5.0)
+                 if onset_step is None else
+                 F.ThermalThrottleDrift(slow, procs=procs, peak_factor=5.0,
+                                        onset_step=onset_step))
+    faults = (straggler, F.IOHotspot(hot, extra_bytes=100e9, slowdown=6.0))
     return tree, FaultedSyntheticCollector(tree, behaviors, faults, seed=0,
-                                           n_processes=m), (slow, hot)
+                                           n_processes=m,
+                                           n_steps=n_steps), (slow, hot)
 
 
 def host_breakdown(fn) -> list:
@@ -992,13 +1023,18 @@ def check_phase_times(trace, tree, phases) -> None:
                     f" s)")
 
 
-def serve_phase(argv, device) -> dict:
+def serve_phase(argv, device, spool_dir: str | None = None,
+                watch_interval: float | None = None) -> dict:
     """Serve the traffic through ``repro_torch.launch.serve`` with launch
     counts from 0; every model call must have launched 2L+1 RMSNorms and L
     attentions or WKV-6s (``launches_per_call``), the peak device memory
     must fit the card, every request must complete with its tokens in the
     vocabulary, and the saved serving trace, analyzed on the kernel lane
-    and on the numpy lane, must give equal verdict docs."""
+    and on the numpy lane, must give equal verdict docs.
+
+    With ``spool_dir`` the server also spools its steps there while a
+    child process tails the spool live (``LiveTail``); the result's
+    ``live`` holds what the tail saw."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.core import AutoAnalyzer, RegionTrace, tree_from_schema
@@ -1006,17 +1042,34 @@ def serve_phase(argv, device) -> dict:
     on_card = torch.device(device).type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         path = str(pathlib.Path(tmp) / "serve.npz")
+        spool = [] if spool_dir is None else ["--spool-dir", spool_dir]
         args = serve.parser().parse_args(
-            [*argv, "--device", str(device), "--trace", path])
+            [*argv, "--device", str(device), "--trace", path, *spool])
+        tail = None
+        if spool_dir is not None:
+            shutil.rmtree(spool_dir, ignore_errors=True)
+            tail = LiveTail(spool_dir, device, watch_interval)
+        step_times = []
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         t0 = time.perf_counter()
-        engine, backend = serve.run(args)
+        served = False
+        try:
+            engine, backend = serve.run(
+                args, step_hook=lambda *_: step_times.append(time.time()))
+            served = True
+        finally:
+            # a server that failed leaves the tail waiting: stop it (one
+            # that finished closed the spool, and the tail exits itself)
+            if tail is not None and not served:
+                tail.proc.kill()
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() if on_card else None
         trace = RegionTrace.load(path)
+        live = (None if tail is None else
+                tail.check(path, step_times[-1], device, tmp))
     cfg, calls = backend.cfg, backend.model_calls
     if on_card:
         _check_launches(launches, cfg, calls, "serving")
@@ -1058,7 +1111,130 @@ def serve_phase(argv, device) -> dict:
             "analysis_launches": analysis_launches,
             "seed_counts": seed_counts, "decisions": dict(an_k.decisions),
             "trace_shape": [trace.n_steps, trace.n_processes,
-                            len(trace.region_ids)]}
+                            len(trace.region_ids)], "live": live}
+
+
+# The window line the watch command prints as it judges each window.
+WINDOW_LINE = re.compile(r"^window\s+(\d+)\s+steps \[(\d+):(\d+)\)")
+
+
+class LiveTail:
+    """``python -m repro_torch.cli.watch_trace SPOOL --follow --json`` in a
+    child process on ``device``, started before the server.  A thread
+    stamps each line of the child's standard error with the host's clock
+    as it arrives: one line per window as the child judges it, then the
+    kernel lane's launch and re-decision counts.  ``interval`` is the
+    child's poll interval (None: the command's default, 1 s), ``threads``
+    its thread pools' size (None: the defaults).  The constructor returns
+    once the child says it is following the spool."""
+
+    def __init__(self, spool_dir: str, device, interval: float | None,
+                 threads: int | None = None):
+        self.spool_dir = spool_dir
+        cmd = [sys.executable, "-m", "repro_torch.cli.watch_trace",
+               spool_dir, "--follow", "--json", "--device", str(device)]
+        if interval is not None:
+            cmd += ["--interval", str(interval)]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src"), *filter(None, [os.environ.get(
+                "PYTHONPATH")])]))
+        if threads is not None:
+            # the child's intra-op and BLAS thread pools
+            env.update({v: str(threads) for v in (
+                "OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")})
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+        self.lines: list = []
+        self.out: list = []
+        self.threads = [
+            threading.Thread(target=lambda: self.lines.extend(
+                (time.time(), ln.rstrip("\n")) for ln in self.proc.stderr)),
+            threading.Thread(target=lambda: self.out.append(
+                self.proc.stdout.read()))]
+        for t in self.threads:
+            t.start()
+        # the server starts once the child is tailing (its "following"
+        # line), not while it is still importing
+        deadline = time.time() + 300
+        while not any(ln.startswith("following ") for _, ln in self.lines):
+            if self.proc.poll() is not None or time.time() > deadline:
+                self.proc.kill()
+                raise AssertionError(
+                    f"the live tail did not start (exit {self.proc.poll()})"
+                    f":\n" + "\n".join(ln for _, ln in self.lines[-20:]))
+            time.sleep(0.05)
+
+    def check(self, served_path: str, last_step_t: float, device,
+              tmp: str) -> dict:
+        """Wait for the child and hold what it saw: it exits 0; it printed
+        a window verdict before the server's last engine step (host clock
+        ``last_step_t``); its window verdicts equal the exact numpy lane's
+        replay of the finalized spool; the finalized spool is the served
+        trace (bytes and ``reduce()``).  Returns the windows' lags from the
+        flush of the segment that completed each to its verdict line, and
+        the child's kernel-lane counts."""
+        import numpy as np
+        import torch
+        from repro_torch.core import RegionTrace
+        from repro_torch.stream import OnlineAnalyzer, SpooledTrace
+        rc = self.proc.wait(timeout=900)
+        for t in self.threads:
+            t.join()
+        err = [ln for _, ln in self.lines]
+        if rc != 0:
+            raise AssertionError(f"the live tail exited {rc}:\n"
+                                 + "\n".join(err[-20:]))
+        doc = json.loads(self.out[0])
+        seen = [(t, WINDOW_LINE.match(ln)) for t, ln in self.lines]
+        seen = [(t, int(m.group(1)), int(m.group(3))) for t, m in seen if m]
+        lane = [json.loads(ln)["lane"] for ln in err
+                if ln.startswith('{"lane"')]
+        if len(seen) != len(doc["windows"]) or len(lane) != 1:
+            raise AssertionError(f"the live tail printed {len(seen)} window"
+                                 f" lines for {len(doc['windows'])} windows:"
+                                 f"\n" + "\n".join(err[-20:]))
+        if not seen or not seen[0][0] < last_step_t:
+            raise AssertionError(
+                f"no window verdict before the server's last step: the "
+                f"first came {seen[0][0] - last_step_t if seen else None} s "
+                f"after it")
+        sp = SpooledTrace(self.spool_dir)
+        exact = OnlineAnalyzer(distance_backend="numpy").poll(sp)
+        got = [(tuple(w["steps"]), w.get("verdict")) for w in doc["windows"]]
+        want = [((w.start, w.stop), None if w.degraded else w.verdict.doc())
+                for w in exact]
+        if got != want or any(v is None for _, v in want):
+            raise AssertionError(f"live window verdicts differ from the "
+                                 f"exact lane's replay:\nlive  {got}\n"
+                                 f"exact {want}")
+        fin = sp.finalize(str(pathlib.Path(tmp) / "finalized.npz"))
+        same_bytes = (pathlib.Path(fin).read_bytes()
+                      == pathlib.Path(served_path).read_bytes())
+        a = RegionTrace.load(fin).reduce()
+        b = RegionTrace.load(served_path).reduce()
+        same_reduce = all(np.array_equal(a.metric(k), b.metric(k))
+                          for k in b.data)
+        if not (same_bytes and same_reduce):
+            raise AssertionError("the finalized spool is not the served "
+                                 "trace")
+        if torch.device(device).type == "cuda" and \
+                lane[0]["launches"] == 0:
+            raise AssertionError("the live tail never launched the kernel")
+        flushed = {}
+        for seg in sp.segment_records:
+            t = os.stat(pathlib.Path(self.spool_dir) / seg["file"]).st_mtime
+            for step in range(seg["start"], seg["start"] + seg["n_steps"]):
+                flushed[step] = t
+        return {"windows": len(seen), "verdicts_equal": True,
+                "finalized_equal": True,
+                "first_verdict_before_last_step_s": last_step_t - seen[0][0],
+                "lags_s": [t - flushed[stop - 1] for t, _, stop in seen],
+                "segments": len(sp.segment_records),
+                "launches": lane[0]["launches"],
+                "seed_counts": lane[0]["seed_counts"],
+                "decisions": lane[0]["decisions"],
+                "flagged_windows": sum(bool(w.kinds) for w in exact)}
 
 
 DECODE_PROFILE_STEPS = 8
@@ -1359,6 +1535,252 @@ RWKV_SERVE_ARGV = ("--arch", "rwkv6-3b", "--lanes", "4", "--requests", "8",
 RWKV_PARITY_PROMPT = 64
 
 
+# Phase 11's live tail: the spool the served rwkv6-3b steps go to.
+RWKV_SPOOL = ROOT / "build" / "spool_rwkv"
+
+
+def tail_cost(argv=RWKV_SERVE_ARGV, device="cuda",
+              order=("none", "tail", "tail-1-thread", "tail-1-thread",
+                     "tail", "none")) -> list:
+    """Not a phase of ``main()``: what a live tail costs the server it
+    shares the host with.  Serves ``argv`` once per entry of ``order`` —
+    alone (``none``), with ``LiveTail`` following its spool (``tail``), or
+    with the tail's thread pools cut to one thread (``tail-1-thread``) —
+    and returns each run's serving summary (decode tok/s ...).  The order
+    alternates the arms so that drift on the host does not favour one.
+
+        python3 -c 'import chip_smoke as c, json
+        print(json.dumps(c.tail_cost()))'
+    """
+    from repro_torch.launch import serve
+    rows = []
+    for arm in order:
+        with tempfile.TemporaryDirectory() as tmp:
+            spool = str(pathlib.Path(tmp) / "spool")
+            args = serve.parser().parse_args(
+                [*argv, "--device", str(device),
+                 *([] if arm == "none" else ["--spool-dir", spool])])
+            tail = None if arm == "none" else LiveTail(
+                spool, device, None, 1 if arm == "tail-1-thread" else None)
+            engine, _ = serve.run(args)
+            if tail is not None:
+                tail.proc.wait(timeout=600)
+                for t in tail.threads:
+                    t.join()
+            rows.append({"arm": arm, **serve.summary(engine)})
+            log(json.dumps(rows[-1]))
+    return rows
+
+
+# -- phase 12 --------------------------------------------------------------
+
+RUNTIME_ENTRIES = ("runtime/compute-straggler", "runtime/data-skew")
+
+
+def runtime_phase(device) -> dict:
+    """The two runtime corpus entries through the port's corpus on
+    ``device``, kernel lane, with the corpus's one retry
+    (``run_entry_robust``): each must name rt/solver with recall 1.0.
+    Returns, per entry and region, each shard's wall (min of repeats, as
+    ``reduce`` takes it), its CUDA-event device time (min of repeats; None
+    on the CPU), ``cost_of``'s FLOPs and bytes and the roofline bound on
+    the H100 spec; and the seed-row launches and re-decisions of the
+    phase's analyses, counted from 0."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core import H100_SXM, WALL_TIME, roofline_terms
+    from repro_torch.scenarios import CORPUS, run_entry_robust
+    K.reset_launches()
+    out, decisions = {}, []
+    for name in RUNTIME_ENTRIES:
+        r = run_entry_robust(CORPUS[name], seed=0,
+                             analyzer_overrides={"device": device})
+        if not (r.passed and r.recall == 1.0 and "rt/solver" in r.found):
+            raise AssertionError(f"{name}: found {sorted(r.found)}, "
+                                 f"precision {r.precision}")
+        runner, trace = r.collector.runner, r.collector.last_trace
+        wall = trace.data[WALL_TIME].min(axis=1)[0]     # (shards, regions)
+        regions = {}
+        for reg in runner.tree.regions():
+            if reg.fn is None:
+                continue
+            rid = reg.region_id
+            flops, nbytes, comm = runner.costs[rid]
+            dev = runner.device_s.get(rid)
+            regions[reg.path] = {
+                "wall_s": wall[:, trace.col(rid)].tolist(),
+                "device_s": None if dev is None else dev.min(axis=1).tolist(),
+                "flops": flops, "bytes": nbytes,
+                "bound_s": roofline_terms(flops, nbytes, comm, 1,
+                                          H100_SXM).bound_s}
+        out[name] = {"found": sorted(r.found), "precision": r.precision,
+                     "attempt_walls": list(r.attempt_walls),
+                     "iters": list(r.collector.iters),
+                     "cpu_clock": [trace.meta["cpu_clock"],
+                                   trace.meta["cpu_tick"]],
+                     "regions": regions}
+        decisions.append(r.decisions)
+    launches = K.LAUNCHES["multi_seed_rows"]
+    if launches == 0 and _on_card(device):
+        raise AssertionError("the runtime entries never launched the kernel")
+    return {"entries": out, "launches": launches,
+            "seed_counts": dict(K.SEED_COUNTS),
+            "decisions": _sum_counts(decisions)}
+
+
+def _on_card(device) -> bool:
+    import torch
+    return torch.device(device).type == "cuda"
+
+
+def _sum_counts(dicts) -> dict | None:
+    """Element-wise sum of count dicts (None entries skipped)."""
+    dicts = [d for d in dicts if d is not None]
+    if not dicts:
+        return None
+    return {k: sum(d[k] for d in dicts) for k in dicts[0]}
+
+
+# -- phase 13 --------------------------------------------------------------
+
+STREAM_STEPS, STREAM_ONSET, STREAM_WINDOW = 4, 2, 2
+STREAM_SPOOL = ROOT / "build" / "spool_fleet"
+
+
+def stream_fleet_phase(m: int, n: int, straggler_procs: int, device,
+                       spool_dir=STREAM_SPOOL) -> dict:
+    """Phase 5's collector for ``STREAM_STEPS`` steps with the straggler's
+    onset at step ``STREAM_ONSET``, spooled one step a segment, then read
+    by ``OnlineAnalyzer`` in ``STREAM_WINDOW``-step tumbling windows with
+    persist 1 on the kernel lane and on the numpy lane.  The window
+    verdicts must be equal on the two lanes, the dissimilarity onset must
+    be window 1 on both (the I/O hotspot's disparity stands from window
+    0), and the kernel lane must have launched the kernel.  The spool is
+    deleted at the end.  Returns its bytes on disk, the write time, each
+    window's wall on each lane and its reassembly alone, and the seed-row
+    launches and re-decisions of the kernel lane's windows."""
+    from repro_torch import kernels as K
+    from repro_torch.stream import OnlineAnalyzer, SpooledTrace, TraceSpool
+    _, collector, planted = fleet_collector(
+        m, n, straggler_procs, n_steps=STREAM_STEPS,
+        onset_step=STREAM_ONSET)
+    trace = collector.collect_trace()
+    shutil.rmtree(spool_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    spool = TraceSpool(str(spool_dir), chunk_steps=1, meta=dict(trace.meta))
+    for step in range(trace.n_steps):
+        spool.append(trace.window(step, step + 1))
+    spool.close(meta=dict(trace.meta))
+    write_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in pathlib.Path(spool_dir).iterdir()
+                 if f.is_file())
+    del trace
+    lanes = {}
+    for lane, kw in (("kernel", {"distance_backend": "kernel",
+                                 "device": device}),
+                     ("numpy", {"distance_backend": "numpy"})):
+        online = OnlineAnalyzer(window_steps=STREAM_WINDOW, persist=1, **kw)
+        sp = SpooledTrace(str(spool_dir))
+        bounds = online.pending_bounds(sp)
+        # each window's reassembly alone (its segments read and merged),
+        # timed in a call of its own before the window is consumed
+        reads = []
+        for start, stop in bounds:
+            t0 = time.perf_counter()
+            sp.window(start, stop)
+            reads.append(time.perf_counter() - t0)
+        K.reset_launches()
+        walls, windows = [], []
+        for start, stop in bounds:
+            t0 = time.perf_counter()
+            windows.append(online.consume(sp, start, stop))
+            if _on_card(device):
+                import torch
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        lanes[lane] = {"walls_s": walls, "reads_s": reads,
+                       "onset": online.onset("dissimilarity"),
+                       "windows": windows,
+            "launches": K.LAUNCHES["multi_seed_rows"],
+            "seed_counts": dict(K.SEED_COUNTS),
+            "decisions": online.decisions}
+    docs = {lane: [(w.start, w.stop, None if w.degraded else w.verdict.doc())
+                   for w in v["windows"]] for lane, v in lanes.items()}
+    if docs["kernel"] != docs["numpy"] or None in \
+            [d for *_, d in docs["numpy"]]:
+        raise AssertionError(f"streamed fleet windows differ between "
+                             f"lanes:\nkernel {docs['kernel']}\n"
+                             f"numpy  {docs['numpy']}")
+    if not lanes["kernel"]["onset"] == lanes["numpy"]["onset"] == 1:
+        raise AssertionError(f"streamed fleet onset: kernel lane "
+                             f"{lanes['kernel']['onset']}, numpy lane "
+                             f"{lanes['numpy']['onset']}; want window 1")
+    if lanes["kernel"]["launches"] == 0 and _on_card(device):
+        raise AssertionError("the streamed fleet windows never launched "
+                             "the kernel")
+    shutil.rmtree(spool_dir)
+    k = lanes["kernel"]
+    return {"shape": [m, n], "steps": STREAM_STEPS, "planted": list(planted),
+            "spool_bytes": nbytes, "write_s": write_s,
+            "kernel_walls_s": k["walls_s"],
+            "numpy_walls_s": lanes["numpy"]["walls_s"],
+            "reads_s": k["reads_s"] + lanes["numpy"]["reads_s"],
+            "onset": k["onset"],
+            "kinds": [sorted(w.kinds) for w in k["windows"]],
+            "launches": k["launches"], "seed_counts": k["seed_counts"],
+            "decisions": k["decisions"]}
+
+
+# -- phase 14 --------------------------------------------------------------
+
+CHAOS_SEEDS = (0, 1, 7)
+# (quarantined, adopted, degraded, stalled, shed, matched, comparable) of
+# each entry, the same at every seed of CHAOS_SEEDS: the reference's own
+# outcomes, which tests/test_torch_chaos_corpus.py and
+# tests/test_torch_fleet_corpus.py hold this table to on the CPU.
+CHAOS_OUTCOMES = {
+    "chaos/flip-bytes-segment": (1, 0, 1, False, 0, 3, 3),
+    "chaos/kill-producer-orphan-segment": (0, 1, 0, False, 0, 3, 3),
+    "chaos/kill-producer-torn-segment": (1, 0, 0, False, 0, 2, 2),
+    "chaos/stall-producer": (0, 0, 0, True, 0, 1, 1),
+    "chaos/truncate-segment": (1, 0, 1, False, 0, 3, 3),
+    "fleet/analysis-lag-flood": (0, 0, 6, False, 6, 28, 28),
+    "fleet/concurrent-producer-kill": (0, 1, 0, True, 0, 24, 24),
+    "fleet/one-tenant-corruption": (1, 0, 1, False, 0, 28, 28),
+}
+CHAOS_FIELDS = ("quarantined", "adopted", "degraded", "stalled", "shed",
+                "matched", "comparable")
+
+
+def chaos_phase(device, seeds=CHAOS_SEEDS) -> dict:
+    """The five spool chaos and three fleet corpus entries at ``seeds`` on
+    the kernel lane on ``device``: each passes (``ChaosTruth.check``
+    reports nothing) with its ``CHAOS_OUTCOMES`` row.  Returns the walls,
+    the seed-row launches and the re-decisions, counted from 0."""
+    from repro_torch import kernels as K
+    from repro_torch.scenarios import CORPUS, run_entry
+    K.reset_launches()
+    walls, decisions = {}, []
+    for name, want in CHAOS_OUTCOMES.items():
+        for seed in seeds:
+            r = run_entry(CORPUS[name], seed=seed,
+                          analyzer_overrides={"device": device})
+            got = tuple(getattr(r.chaos_outcome, f) for f in CHAOS_FIELDS)
+            if r.chaos_failures or not r.passed or got != want:
+                raise AssertionError(
+                    f"{name}@{seed}: failures {r.chaos_failures}, passed "
+                    f"{r.passed}, outcome {dict(zip(CHAOS_FIELDS, got))}, "
+                    f"want {dict(zip(CHAOS_FIELDS, want))}")
+            walls[f"{name}@{seed}"] = r.attempt_walls[0]
+            decisions.append(r.decisions)
+    launches = K.LAUNCHES["multi_seed_rows"]
+    if launches == 0 and _on_card(device):
+        raise AssertionError("the chaos entries never launched the kernel")
+    return {"runs": len(walls), "walls_s": walls, "launches": launches,
+            "seed_counts": dict(K.SEED_COUNTS),
+            "decisions": _sum_counts(decisions)}
+
+
 # -- driver ----------------------------------------------------------------
 
 def main() -> int:
@@ -1539,8 +1961,9 @@ def main() -> int:
         f"{rparity['tokens']}; card launches {rparity['launches']} over "
         f"{rparity['calls']} model calls; {time.perf_counter() - t0:.1f} s")
 
-    # 11. serving rwkv6-3b FULL on the card, then its trace analyzed
-    rserved = serve_phase(RWKV_SERVE_ARGV, "cuda")
+    # 11. serving rwkv6-3b FULL on the card, tailed live, then its trace
+    # analyzed
+    rserved = serve_phase(RWKV_SERVE_ARGV, "cuda", spool_dir=str(RWKV_SPOOL))
     log(f"[11] serve {' '.join(RWKV_SERVE_ARGV)}: "
         f"{json.dumps(rserved['summary'])}")
     log(f"[11] {rserved['model_calls']} model calls, launches "
@@ -1554,6 +1977,64 @@ def main() -> int:
         f"({rserved['analysis_launches']} seed-row launches, by seed count k "
         f"{rserved['seed_counts']}; re-decided {rserved['decisions']}): "
         f"{json.dumps(rserved['verdict'], sort_keys=True)}")
+    live = rserved["live"]
+    lags = sorted(live["lags_s"])
+    log(f"[11] live tail (cli.watch_trace --follow --json --device cuda in "
+        f"a child process, 1 s polls): {live['windows']} window verdicts "
+        f"({live['flagged_windows']} flagged) over {live['segments']} "
+        f"segments, equal to the exact lane's replay of the finalized "
+        f"spool; the first came {live['first_verdict_before_last_step_s']:.3f}"
+        f" s before the server's last step; the finalized spool is the "
+        f"served trace byte for byte; decode tok/s with the tail on the "
+        f"host {rserved['summary']['decode_tok_per_s']:.4f}")
+    log(f"[11] live lag from a segment's flush to its window's verdict, s: "
+        f"min {lags[0]:.4f}, median {lags[len(lags) // 2]:.4f}, max "
+        f"{lags[-1]:.4f}; all {json.dumps(live['lags_s'])}")
+    log(f"[11] live tail's kernel lane: {live['launches']} seed-row "
+        f"launches, by seed count k {live['seed_counts']}; re-decided "
+        f"{live['decisions']}")
+
+    # 12. the runtime collector on the card
+    t0 = time.perf_counter()
+    runtime = runtime_phase("cuda")
+    log(f"[12] runtime entries name rt/solver on the kernel lane "
+        f"({runtime['launches']} seed-row launches, by seed count k "
+        f"{runtime['seed_counts']}; re-decided {runtime['decisions']}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, res in runtime["entries"].items():
+        log(f"[12] {name}: iterations {res['iters']}, found {res['found']}"
+            f" (precision {res['precision']}), attempts' walls "
+            f"{res['attempt_walls']}, CPU clock (name, tick s) "
+            f"{res['cpu_clock']}")
+        for path, reg in res["regions"].items():
+            log(f"[12]   {path}: wall s per shard {reg['wall_s']}; CUDA-event"
+                f" device s {reg['device_s']}; cost_of {reg['flops']:.6g} "
+                f"FLOPs, {reg['bytes']:.6g} bytes; H100 roofline bound "
+                f"{reg['bound_s']:.6g} s")
+
+    # 13. the fleet shape streamed through a spool
+    stream = stream_fleet_phase(FLEET_M, FLEET_N, 2048, "cuda")
+    log(f"[13] streamed fleet {FLEET_M}x{FLEET_N}, {stream['steps']} steps "
+        f"one a segment, straggler onset at step {STREAM_ONSET}: spool "
+        f"{stream['spool_bytes']} bytes written in {stream['write_s']:.3f} "
+        f"s; {STREAM_WINDOW}-step windows equal on both lanes, kinds "
+        f"{stream['kinds']}, dissimilarity onset window {stream['onset']}; "
+        f"wall per window kernel lane {stream['kernel_walls_s']} s, numpy "
+        f"lane {stream['numpy_walls_s']} s, of which reassembling the "
+        f"window from its segments (timed alone, kernel then numpy lane's "
+        f"turn) {stream['reads_s']} s; {stream['launches']} seed-row "
+        f"launches, by seed count k {stream['seed_counts']}; re-decided "
+        f"{stream['decisions']}")
+
+    # 14. chaos and fleet entries on the card
+    t0 = time.perf_counter()
+    chaos = chaos_phase("cuda")
+    log(f"[14] {len(CHAOS_OUTCOMES)} chaos and fleet entries at seeds "
+        f"{list(CHAOS_SEEDS)} pass on the kernel lane with the reference's "
+        f"outcomes ({chaos['runs']} runs, {time.perf_counter() - t0:.1f} s;"
+        f" {chaos['launches']} seed-row launches, by seed count k "
+        f"{chaos['seed_counts']}; re-decided {chaos['decisions']})")
+    log(f"[14] wall per run, s: {json.dumps(chaos['walls_s'])}")
 
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
@@ -1575,11 +2056,19 @@ def main() -> int:
         "seed_counts": {"corpus": corpus["seed_counts"],
                         "fleet": fleet["seed_counts"],
                         "serve_gemma": served["seed_counts"],
-                        "serve_rwkv": rserved["seed_counts"]},
+                        "serve_rwkv": rserved["seed_counts"],
+                        "runtime": runtime["seed_counts"],
+                        "stream_fleet": stream["seed_counts"],
+                        "live_rwkv": live["seed_counts"],
+                        "chaos": chaos["seed_counts"]},
         "decisions": {"corpus": corpus["decisions"],
                       "fleet": fleet["decisions"],
                       "serve_gemma": served["decisions"],
-                      "serve_rwkv": rserved["decisions"]},
+                      "serve_rwkv": rserved["decisions"],
+                      "runtime": runtime["decisions"],
+                      "stream_fleet": stream["decisions"],
+                      "live_rwkv": live["decisions"],
+                      "chaos": chaos["decisions"]},
     }]
     for name, errs, times, main, prefill, shape in (
             ("rmsnorm", rms_err, rms_t, RMS_MAIN, RMS_PREFILL, list),

@@ -8,7 +8,7 @@ Public API:
   find_dissimilarity_bottlenecks / find_disparity_bottlenecks — §4.3
   DecisionTable                  — rough-set root causes (§4.4)
   AutoAnalyzer                   — end-to-end orchestration
-  SyntheticWorkload              — the synthetic collector
+  collectors                     — runtime / static / synthetic backends
 """
 from .analyzer import (ATTRIBUTE_MEANING, AnalysisResult, AutoAnalyzer,
                        Verdict)
@@ -17,7 +17,10 @@ from .clustering import (DISTANCE_BACKENDS, HIGH, LOW, MEDIUM,
                          IncrementalClusterState, dissimilarity_severity,
                          get_distance_backend, is_similar, kmeans_1d,
                          kmeans_severity, optics_cluster, resolve_device)
-from .collector import RegionBehavior, SyntheticWorkload
+from .collector import (RegionBehavior, SyntheticWorkload, TimedRegionRunner,
+                        static_metrics_from_costs, static_trace_from_costs)
+from .hlo import (H100_SXM, HardwareSpec, RooflineTerms, cost_of,
+                  roofline_terms)
 from .metrics import (BYTES, COMM_BYTES, COMM_TIME, CPU_TIME,
                       DECISION_ATTRIBUTES, FLOPS, HBM_INTENSITY, HOST_BYTES,
                       RAW_METRICS, VMEM_PRESSURE, WALL_TIME, RegionMetrics)

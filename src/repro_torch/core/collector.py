@@ -1,5 +1,5 @@
-"""Collectors: produce :class:`RegionTrace` samples from simulated runs
-(paper §4.1 step 2, §5 "Data collector").
+"""Collectors: produce :class:`RegionTrace` samples from real or simulated
+runs (paper §4.1 step 2, §5 "Data collector").
 
 Collection is decoupled from analysis: a collector records raw
 per-(step, repeat, shard, region) samples into a :class:`RegionTrace` and
@@ -7,30 +7,43 @@ derives its classic :class:`RegionMetrics` output through the single
 deterministic :meth:`RegionTrace.reduce` path — so an in-process analysis
 and an offline analysis of the saved artifact see bit-identical inputs.
 
-This part of the port holds the synthetic backend —
-:class:`SyntheticWorkload` generates metrics with injected behaviours
-(imbalance, I/O-heavy regions, cache-hostile regions) used to reproduce
-the paper's ST / NPAR1WAY / MPIBZIP2 studies and the fault corpus.  It is
-numpy-only and draws the same random stream as the reference, so a
-scenario collected by either package holds the same samples bit for bit —
-and the CPU-clock calibration (:func:`_pick_cpu_clock`) that the serving
-runtime (``repro_torch.serve.runtime``) records in its trace header.  The
-runtime collector that times real regions on the card
-(``TimedRegionRunner``) and the static collectors are not ported yet.
+The PyTorch port of the reference's ``repro/core/collector.py``, with its
+three backends:
+
+* :class:`TimedRegionRunner` — runtime collector.  Runs a region tree
+  whose leaves carry callables on tensors of one device (the card unless
+  the caller asks for the CPU), timing each call: wall time is the host's
+  ``perf_counter`` around the call ending in ``torch.cuda.synchronize()``
+  (the twin of the reference's ``block_until_ready``), CPU time the
+  chosen CPU clock (:func:`_pick_cpu_clock`), FLOPs and bytes
+  :func:`~repro_torch.core.hlo.cost_of`'s.  CUDA events around the same
+  call give each region's device time beside the trace.  "Processes" are
+  emulated SPMD shards: the same region callables run once per shard on
+  that shard's data.
+* :func:`static_metrics_from_costs` — dry-run collector: metrics from
+  per-region static costs broadcast over shards.
+* :class:`SyntheticWorkload` — generates metrics with injected behaviours
+  (imbalance, I/O-heavy regions, cache-hostile regions) used to reproduce
+  the paper's ST / NPAR1WAY / MPIBZIP2 studies and the fault corpus.  It is
+  numpy-only and draws the same random stream as the reference, so a
+  scenario collected by either package holds the same samples bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
+from . import hlo as hlo_mod
 from .metrics import (BYTES, COMM_BYTES, COMM_TIME, CPU_TIME, FLOPS,
                       HBM_INTENSITY, HOST_BYTES, RAW_METRICS, VMEM_PRESSURE,
                       WALL_TIME, RegionMetrics)
-from .regions import RegionTree
+from .regions import CodeRegion, RegionTree
 from .trace import RegionTrace
 
 
@@ -103,6 +116,169 @@ def _pick_cpu_clock() -> Tuple[Callable[[], float], Optional[float], str]:
                                                    thread_tick)):
             return thread_clock, thread_tick, "thread"
     return time.process_time, process_tick, "process"
+
+
+class TimedRegionRunner:
+    """Run an instrumented step shard-by-shard, region-by-region.
+
+    Region callables have signature ``fn(state, data) -> state`` on
+    tensors of the runner's device, where ``state`` is threaded through
+    the regions in tree (pre-order) sequence and ``data`` is the shard's
+    input batch.  There is no jit: each call runs eagerly.
+
+    ``repeats`` measures each (region, shard) pair that many times and
+    records the minimum (the classic noise-robust timing statistic —
+    scheduler preemption only ever adds time), so load on the host does not
+    masquerade as process dissimilarity.
+
+    Each region's FLOPs and bytes come from one
+    :func:`~repro_torch.core.hlo.cost_of` call on shard 0's inputs, made
+    once before any timed call and never timed; they are the same for
+    every shard, as the reference's compiled costs are.  ``COMM_BYTES`` is
+    0: a region on one card runs no collective.
+
+    ``WALL_TIME`` is the host's ``perf_counter`` around the call, ending
+    in ``torch.cuda.synchronize()`` on the card — device time alone would
+    hide a host-side straggler, which the wall shows.  CUDA events
+    recorded around the same call give the region's device time in
+    :attr:`device_s` (``{region_id: (shards, repeats) seconds}``; empty on
+    the CPU); it is not a trace metric, because the reference has none.
+
+    The CPU clock is chosen once per process by :func:`_pick_cpu_clock`:
+    the per-thread clock when it is finer than ``time.process_time``'s
+    jiffy tick *and* tensor work accrues on the calling thread, else the
+    process clock.  Either way the measured tick lands in the trace header
+    (``cpu_tick``) and drives the reduce-time quantization guard: when a
+    region's wall time is below the tick the CPU delta is pure noise (0 or
+    one full jiffy) and the wall delta stands in.
+    """
+
+    # class-level lazy cache: (clock, measured tick, clock name)
+    _cpu_clock: Optional[Tuple[Callable[[], float], float, str]] = None
+
+    def __init__(self, tree: RegionTree, warmup: int = 1, repeats: int = 3,
+                 device: Union[None, str, torch.device] = None):
+        self.tree = tree
+        self.warmup = warmup
+        self.repeats = max(1, repeats)
+        self.device = resolve_device(device)
+        self.costs: Dict[int, Tuple[float, float, float]] = {}
+        self.device_s: Dict[int, np.ndarray] = {}
+
+    def _leaf_regions(self) -> List[CodeRegion]:
+        return [r for r in self.tree.regions() if r.fn is not None]
+
+    def run_trace(self, shard_states: Sequence[Any],
+                  shard_data: Sequence[Any]) -> RegionTrace:
+        """Execute one instrumented step and record *raw* samples: every
+        repeat's wall/CPU reading survives into the trace; min-of-repeats
+        and the CPU-tick snap happen in :meth:`RegionTrace.reduce`, driven
+        by the ``cpu_tick`` stored in the header — so an offline analysis
+        of the saved artifact reproduces this host's decisions exactly."""
+        regions = self._leaf_regions()
+        m = len(shard_states)
+        states = list(shard_states)
+        # Lazy: clock selection busy-spins up to 50ms per candidate (plus
+        # a short matrix-product probe when the thread clock looks finer),
+        # so pay it only when actually timing.  Cached once calibration
+        # succeeds; a failed calibration (None tick) falls back to the
+        # advertised process-clock resolution for this run and is
+        # re-attempted next time.
+        if TimedRegionRunner._cpu_clock is None:
+            clock, tick, name = _pick_cpu_clock()
+            if tick is not None:
+                TimedRegionRunner._cpu_clock = (clock, tick, name)
+        else:
+            clock, tick, name = TimedRegionRunner._cpu_clock
+        if tick is None:
+            tick = time.get_clock_info("process_time").resolution
+        trace = RegionTrace.for_tree(
+            self.tree, [r.region_id for r in regions], m,
+            n_steps=1, n_repeats=self.repeats,
+            meta={"collector": "runtime", "cpu_tick": tick,
+                  "cpu_clock": name, "derived": True})
+        on_card = self.device.type == "cuda"
+
+        def sync() -> None:
+            if on_card:
+                torch.cuda.synchronize(self.device)
+
+        for r in regions:
+            rid = r.region_id
+            if rid not in self.costs:
+                flops, byts = hlo_mod.cost_of(r.fn, states[0], shard_data[0])
+                self.costs[rid] = (flops, byts, 0.0)
+            flops, byts, comm = self.costs[rid]
+            dev = np.zeros((m, self.repeats))
+            for i in range(m):
+                for _ in range(self.warmup):
+                    r.fn(states[i], shard_data[i])
+                    sync()
+                for k in range(self.repeats):
+                    if on_card:
+                        ev0 = torch.cuda.Event(enable_timing=True)
+                        ev1 = torch.cuda.Event(enable_timing=True)
+                        ev0.record()
+                    t0w, t0c = time.perf_counter(), clock()
+                    out = r.fn(states[i], shard_data[i])
+                    if on_card:
+                        ev1.record()
+                    sync()
+                    t1w, t1c = time.perf_counter(), clock()
+                    trace.record(WALL_TIME, 0, k, i, rid, t1w - t0w)
+                    trace.record(CPU_TIME, 0, k, i, rid, t1c - t0c)
+                    trace.record(FLOPS, 0, k, i, rid, flops)
+                    trace.record(BYTES, 0, k, i, rid, byts)
+                    trace.record(COMM_BYTES, 0, k, i, rid, comm)
+                    if on_card:
+                        dev[i, k] = ev0.elapsed_time(ev1) / 1e3
+                states[i] = out
+            if on_card:
+                self.device_s[rid] = dev
+        self.final_states = states
+        return trace
+
+    def run(self, shard_states: Sequence[Any],
+            shard_data: Sequence[Any]) -> RegionMetrics:
+        return self.run_trace(shard_states, shard_data).reduce()
+
+
+def static_trace_from_costs(
+    tree: RegionTree,
+    region_ids: Sequence[int],
+    costs: Dict[int, Dict[str, float]],
+    n_processes: int = 1,
+) -> RegionTrace:
+    """Dry-run backend: per-region static costs -> single-step trace.
+
+    ``costs[rid]`` maps metric name -> value (same for every shard; the
+    dry-run has no per-shard variation by construction).
+    """
+    trace = RegionTrace.for_tree(
+        tree, list(region_ids), n_processes,
+        meta={"collector": "static", "derived": True})
+    for rid in region_ids:
+        for name, v in costs.get(rid, {}).items():
+            trace.metric(name)[0, 0, :, trace.col(rid)] = float(v)
+    return trace
+
+
+def static_metrics_from_costs(
+    region_ids: Sequence[int],
+    costs: Dict[int, Dict[str, float]],
+    n_processes: int = 1,
+    tree: Optional[RegionTree] = None,
+) -> RegionMetrics:
+    """Classic dry-run entry point, routed through the trace layer.
+
+    Without a ``tree`` the trace header gets a flat stand-in schema (the
+    static callers predate region trees); the reduction is identical."""
+    if tree is None:
+        tree = RegionTree("static")
+        for rid in region_ids:
+            tree.add(f"cr{rid}", region_id=rid)   # raises if rid is 0
+    return static_trace_from_costs(tree, region_ids, costs,
+                                   n_processes).reduce()
 
 
 @dataclasses.dataclass

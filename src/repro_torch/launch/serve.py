@@ -6,14 +6,16 @@ plus ``--device``.  Generated traffic (skewed arrivals, bucketed prompt
 lengths, optional hot-prompt repetition and sticky sessions) runs through
 the model on per-lane decode states, every step emitting one serving
 region trace row; ``--trace`` saves the artifact, which the analyzer
-reads::
+reads, and ``--spool-dir`` streams it to a trace spool that a second
+process tails while the server runs::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
         --lanes 4 --requests 8 --prompt-len 512 --chunk 256 --gen 32 \\
         --trace serve.npz
     PYTHONPATH=src python -m repro_torch.cli.analyze_trace serve.npz
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
-        --lanes 4 --requests 8 --prompt-len 64 --gen 16
+        --lanes 4 --requests 8 --prompt-len 64 --gen 16 --spool-dir spool &
+    PYTHONPATH=src python -m repro_torch.cli.watch_trace spool --follow
     PYTHONPATH=src python -m repro_torch.launch.serve --arch st-100m \\
         --smoke --device cpu
 
@@ -67,15 +69,20 @@ def parser() -> argparse.ArgumentParser:
                          "(replayable via python -m "
                          "repro_torch.cli.analyze_trace)")
     ap.add_argument("--spool-dir", default=None, metavar="DIR",
-                    help="stream per-step traces to a TraceSpool (not "
-                         "ported yet: raises)")
+                    help="stream per-step traces to a TraceSpool in DIR, "
+                         "flushed every 8 engine steps (tail it live with "
+                         "python -m repro_torch.cli.watch_trace DIR "
+                         "--follow)")
     ap.add_argument("--device", default=None,
                     help="torch device of the model (default: cuda)")
     return ap
 
 
-def run(args: argparse.Namespace) -> Tuple[ServeEngine, TorchBackend]:
-    """Build the model and the traffic, serve it, finalize the trace."""
+def run(args: argparse.Namespace, step_hook=None
+        ) -> Tuple[ServeEngine, TorchBackend]:
+    """Build the model and the traffic, serve it, finalize the trace.
+    ``step_hook(engine, step, step_trace)`` runs after each engine step,
+    before its trace is spooled (``ServeEngine``'s seam)."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
     api = build(cfg, args.device)
@@ -99,7 +106,7 @@ def run(args: argparse.Namespace) -> Tuple[ServeEngine, TorchBackend]:
     engine = ServeEngine(
         ServeConfig(lanes=args.lanes, max_len=max_len, prefill_chunk=chunk,
                     trace_path=args.trace, trace_spool_dir=args.spool_dir),
-        traffic, backend)
+        traffic, backend, step_hook=step_hook)
     engine.run()
     return engine, backend
 

@@ -1,5 +1,5 @@
 """Model registry: the twin of the reference's ``repro.models`` for the
-dense and ssm families (the others wait for ROADMAP.md queue 6)."""
+dense and ssm families (the others wait for ROADMAP.md queue 1, item 5)."""
 from __future__ import annotations
 
 import dataclasses

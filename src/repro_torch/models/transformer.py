@@ -33,7 +33,7 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (moe={cfg.moe is not None}, "
             f"mla={cfg.mla is not None}) is not ported yet; only the dense "
-            f"and ssm families are (ROADMAP.md queue 6)")
+            f"and ssm families are (ROADMAP.md queue 1, item 5)")
 
 
 def _param(shape, dtype, device, generator: Optional[torch.Generator],

@@ -1,20 +1,33 @@
 """Scenarios of the port: the paper's three applications (synthetic
-reproductions), the fault archetypes, and the synthetic fault corpus."""
+reproductions), the fault archetypes, the infrastructure chaos archetypes,
+and the fault corpus."""
 from . import faults
+from .chaos import (ChaosOutcome, ChaosTruth, FleetAnalysisLagFlood,
+                    FleetChaosCollector, FleetConcurrentKill,
+                    FleetTenantCorruption, FlipBytesInSegment,
+                    KillProducerMidChunk, SpoolChaosCollector,
+                    StallProducer, TruncateSegment)
 from .corpus import (CORPUS, CorpusEntry, CorpusRunResult,
                      FaultedSyntheticCollector, GroundTruth,
-                     baseline_mpibzip2, baseline_npar1way, baseline_st,
-                     corpus_entries, evaluate_corpus, model_region_tree,
-                     onset_window, run_entry, score_verdict, select_entries)
+                     RuntimeFaultCollector, baseline_mpibzip2,
+                     baseline_npar1way, baseline_st, corpus_entries,
+                     evaluate_corpus, model_region_tree, run_entry,
+                     run_entry_robust, score_verdict, select_entries)
 from .mpibzip2 import mpibzip2_scenario
 from .npar1way import npar1way_scenario
 from .st import (IMBALANCE_11, st_fine_scenario, st_scenario,
                  st_total_time)
 
-__all__ = ["CORPUS", "CorpusEntry", "CorpusRunResult",
-           "FaultedSyntheticCollector", "GroundTruth", "IMBALANCE_11",
+__all__ = ["CORPUS", "ChaosOutcome", "ChaosTruth", "CorpusEntry",
+           "CorpusRunResult", "FaultedSyntheticCollector",
+           "FleetAnalysisLagFlood", "FleetChaosCollector",
+           "FleetConcurrentKill", "FleetTenantCorruption",
+           "FlipBytesInSegment", "GroundTruth", "IMBALANCE_11",
+           "KillProducerMidChunk", "RuntimeFaultCollector",
+           "SpoolChaosCollector", "StallProducer", "TruncateSegment",
            "baseline_mpibzip2", "baseline_npar1way", "baseline_st",
            "corpus_entries", "evaluate_corpus", "faults",
            "model_region_tree", "mpibzip2_scenario", "npar1way_scenario",
-           "onset_window", "run_entry", "score_verdict", "select_entries",
-           "st_fine_scenario", "st_scenario", "st_total_time"]
+           "run_entry", "run_entry_robust", "score_verdict",
+           "select_entries", "st_fine_scenario", "st_scenario",
+           "st_total_time"]

@@ -16,8 +16,9 @@ as real instrumentation would observe it.
 
 The PyTorch port's copy of the reference's ``repro/scenarios/faults.py``
 (numpy only): the snapshot and step-aware archetypes through
-:class:`ThermalThrottleDrift`.  The serving archetypes and the runtime
-backend's ``iterated_work`` are not ported yet.
+:class:`ThermalThrottleDrift`, and the runtime backend's
+:func:`iterated_work`, whose iteration count runs as a host loop.  The
+serving archetypes are not ported yet (ROADMAP.md queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -502,3 +503,26 @@ def inject_trace(tree: RegionTree, trace: RegionTrace,
                 f.apply(tree, view, rng)
     return trace
 
+
+# -- runtime backend ------------------------------------------------------
+
+def iterated_work(fn, indexed: bool = False):
+    """Wrap a region callable for the runtime fault backend.
+
+    ``fn(state, data) -> state`` becomes ``wrapped(state, (data, iters))``
+    running the body ``iters`` times in a host loop: one callable serves
+    every shard, and a shard whose bundle carries a larger ``iters``
+    genuinely executes (and launches) more work — calibrated extra work
+    rather than a post-hoc metric edit.  The reference runs the same loop
+    as a data-driven ``fori_loop``; eager PyTorch has no loop-invariant
+    code motion to defeat, so each iteration is the body's full work.
+    With ``indexed=True`` the body receives ``(data, i)`` instead of
+    ``data``."""
+
+    def wrapped(state, bundle):
+        data, iters = bundle
+        for i in range(int(iters)):
+            state = fn(state, (data, i) if indexed else data)
+        return state
+
+    return wrapped

@@ -2,7 +2,7 @@
 with a serving region tree (docs/serving.md), and ``TorchBackend``, which
 runs it on the port's model.  The reference's analytic
 ``CostModelBackend`` (serve/cost.py) is not ported yet (ROADMAP.md
-queue 8)."""
+queue 1, item 3)."""
 from .engine import (DECODE, KV_APPEND, MOE, PREFILL, SAMPLE, LaneEvent,
                      RequestRecord, ServeConfig, ServeEngine, ServeScheduler,
                      serve_region_tree)

@@ -20,9 +20,11 @@ region tree::
 ``i`` is process ``i``, exactly the SPMD mapping the analyzer's
 across-process similarity analysis expects — a straggling lane is a
 dissimilar process, an overloaded region a disparity, with zero analyzer
-changes.  The per-step samples are merged into one ``RegionTrace``
-artifact that the analyzer reads (``python -m
-repro_torch.cli.analyze_trace``).
+changes.  Per-step samples flow through the
+``RegionTrace -> TraceSpool -> OnlineAnalyzer / FleetIngest`` stack
+unchanged (``repro_torch.stream``, ``repro_torch.fleet``), so live tailing
+(``python -m repro_torch.cli.watch_trace``), onset detection, verdict
+fingerprints and fleet dedup all work on serving traffic.
 
 Backends (same ``tree`` / ``region_ids`` / ``warmup()`` /
 ``execute(step, events)`` protocol):
@@ -31,12 +33,12 @@ Backends (same ``tree`` / ``region_ids`` / ``warmup()`` /
   with measured walls / CPU time and analytic flops and bytes; what
   ``repro_torch.launch.serve`` runs.
 * The reference's deterministic ``CostModelBackend`` (serve/cost.py) is
-  not ported yet (ROADMAP.md queue 8).
+  not ported yet (ROADMAP.md queue 1, item 3).
 
-Streaming per-step traces to a ``TraceSpool`` (``trace_spool_dir``) waits
-for the port of the reference's ``stream/`` package (ROADMAP.md queue 5)
-and raises until then.  Finalization keeps the reference's meta key order,
-so an artifact saved here has the reference's header.
+Spooling and finalization mirror the reference exactly: identical meta key
+order on the in-memory and spooled paths, so a finalized spool is
+byte-identical to the monolithic artifact, and an artifact saved here has
+the reference's header.
 """
 from __future__ import annotations
 
@@ -225,7 +227,8 @@ class ServeConfig:
     max_steps: Optional[int] = None
     # -- trace plumbing (mirrors TrainerConfig) ---------------------------
     trace_path: Optional[str] = None
-    trace_spool_dir: Optional[str] = None   # raises until stream/ is ported
+    trace_spool_dir: Optional[str] = None
+    trace_chunk_steps: int = 8
     trace_meta: Optional[Dict[str, Any]] = None
 
     def __post_init__(self) -> None:
@@ -240,9 +243,10 @@ class ServeEngine:
     per engine step.
 
     ``step_hook(engine, step, step_trace)`` runs on each step trace
-    before it is accumulated — the per-step injection seam the
-    reference's serving corpus uses, mirroring its trainer's fault
-    hooks."""
+    before it is spooled/accumulated — the per-step injection seam the
+    reference's serving corpus uses, mirroring its trainer's fault hooks:
+    whatever the hook mutates is what a live tail of the spool sees,
+    while the run is still in flight."""
 
     def __init__(self, scfg: ServeConfig, traffic: Sequence[Any],
                  backend: Any,
@@ -267,11 +271,16 @@ class ServeEngine:
         self.trace: Optional[RegionTrace] = None
         self._step_traces: List[RegionTrace] = []
         self._last_step_trace: Optional[RegionTrace] = None
+        self.spool = None
         if scfg.trace_spool_dir:
-            raise NotImplementedError(
-                "trace_spool_dir: streaming serving traces to a TraceSpool "
-                "waits for the port of stream/ (ROADMAP.md queue 5); use "
-                "trace_path")
+            # Lazy import: repro_torch.stream sits above the core trace
+            # layer.  trace_meta rides along provisionally so a live tail
+            # resolves run-level configuration (analyzer_kw) before the run
+            # ends; close() replaces it with the definitive final meta.
+            from repro_torch.stream import TraceSpool
+            self.spool = TraceSpool(scfg.trace_spool_dir,
+                                    chunk_steps=scfg.trace_chunk_steps,
+                                    meta=scfg.trace_meta)
 
     @property
     def records(self) -> Dict[int, RequestRecord]:
@@ -300,7 +309,10 @@ class ServeEngine:
         for ev in events:
             self.tokens_prefill += ev.prefill_tokens
             self.tokens_decode += ev.decode_tokens
-        self._step_traces.append(step_trace)
+        if self.spool is not None:
+            self.spool.append(step_trace)
+        else:
+            self._step_traces.append(step_trace)
         self._last_step_trace = step_trace
         self.step_idx += 1
         return True
@@ -320,9 +332,10 @@ class ServeEngine:
 
     # -- artifact finalization (mirrors the reference's Trainer) -----------
     def _final_meta(self, base: Dict[str, Any]) -> Dict[str, Any]:
-        """The merged artifact's header meta, in the reference's key order
-        (its spool finalization reproduces the monolithic save
-        byte-for-byte)."""
+        """The merged artifact's header meta, built the same way (and in
+        the same key order) for the in-memory and spooled paths — key
+        order matters because spool finalization must reproduce the
+        monolithic save byte-for-byte."""
         meta = dict(base)
         meta["collector"] = "serve"
         meta.update(self.scfg.trace_meta or {})
@@ -332,10 +345,18 @@ class ServeEngine:
         return meta
 
     def finalize_trace(self) -> Optional[RegionTrace]:
-        if not self._step_traces:
-            return None
-        self.trace = RegionTrace.merge(self._step_traces)
-        self.trace.meta = self._final_meta(self.trace.meta)
+        if self.spool is not None:
+            if self.spool.n_steps == 0:
+                return None
+            if not self.spool.closed:
+                self.spool.close(meta=self._final_meta(self.spool.head_meta))
+            from repro_torch.stream import SpooledTrace
+            self.trace = SpooledTrace(self.spool.directory).to_trace()
+        else:
+            if not self._step_traces:
+                return None
+            self.trace = RegionTrace.merge(self._step_traces)
+            self.trace.meta = self._final_meta(self.trace.meta)
         if self.scfg.trace_path:
             self.trace.save(self.scfg.trace_path)
         return self.trace

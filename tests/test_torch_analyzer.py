@@ -131,7 +131,7 @@ def test_synthetic_snapshot_equals_committed_verdicts(lane):
 def test_corpus_entries_pass(lane):
     from repro_torch.scenarios import corpus_entries, run_entry
     results = [run_entry(e, seed=7, analyzer_overrides=lane)
-               for e in corpus_entries()]
+               for e in corpus_entries(backend="synthetic")]
     assert len(results) == 19
     failed = [r.entry.name for r in results if not r.passed]
     assert not failed

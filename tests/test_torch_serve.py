@@ -172,14 +172,6 @@ def test_serve_trace_replays_in_both_packages(tmp_path):
     assert got.verdict.doc() == want.verdict.doc()
 
 
-def test_spool_dir_raises_naming_the_queue():
-    from repro_torch.serve import serve_region_tree
-    stub = type("Backend", (), {"tree": serve_region_tree(),
-                                "region_ids": []})()
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        ServeEngine(ServeConfig(trace_spool_dir="/nonexistent"), [], stub)
-
-
 def test_call_costs_formula():
     """gemma smoke (L=2, d=64, H=KV=4, dh=16, ff=128, V=256, float32) at
     S=8 tokens over a 20-slot cache, counted by hand; the weight bytes the
