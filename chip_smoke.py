@@ -87,9 +87,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    window verdicts, dissimilarity onset window 1 on both;
 14. chaos and fleet: the five spool ``chaos/*`` and three ``fleet/*``
    corpus entries at seeds 0, 1 and 7 on the kernel lane, each passing
-   with the reference's outcome (``CHAOS_OUTCOMES``).
+   with the reference's outcome (``CHAOS_OUTCOMES``);
+15. training kernels vs plain: ``RmsnormFunction`` at (8192, 768) and
+   (300, 3840) and ``FlashAttentionFunction`` at st-100m's heads (B = 2,
+   S = 1024, causal) and a GQA case with a window and a softcap, float32:
+   the kernel forward within 2e-5 and every input gradient (the plain
+   backward formulas) within 1e-4 of its scale, against
+   ``torch.autograd.grad`` through the plain versions on the card; times
+   of the forward, the backward formulas, the plain forward+backward and
+   ``F.rms_norm`` / ``F.scaled_dot_product_attention`` forward+backward;
+16. training parity: st-100m's full width cut to 2 layers, float32,
+   seeded weights on the host and a copy on the card; one step's loss
+   within 1e-5 relative and every gradient within 1e-4 of its scale, then
+   the losses of 3 AdamW steps within 1e-4 relative;
+17. training: st-100m FULL through ``repro_torch.launch.train --steps 20
+   --batch 8 --seq 1024``; the loss falls (mean of the last 5 steps below
+   the first 5), every forward launches 25 RMSNorms and 12 attentions;
+   the median step, tokens/s and peak memory; one step profiled (device
+   busy against host wall, idle share, top operations); then a traced
+   ``Trainer`` at full width, 4 emulated shards with fwd_bwd iterations
+   (1, 1, 1, 4), 2 steps, analyzed on the kernel and numpy lanes with
+   equal verdicts naming train/fwd_bwd;
+18. the slice's corpus entries: the five ``serving/*``, the three dense
+   ``train/*`` and ``chaos/corrupt-latest-checkpoint`` at seeds 0, 1 and 7
+   on the kernel lane, trainers on the card, each passing with the
+   reference's outcome (completed requests, the mitigation, the
+   checkpoint fallback).
 
-Phases 4, 5, 8, 11, 12, 13 and 14 count the kernels' launches from 0 and
+Phases 4, 5, 8, 11, 12, 13, 14, 17 and 18 count the kernels' launches from 0 and
 fail if the main path never launched them (phase 11's tail counts its own
 in the child); they also record the seed-row launches by
 seed count k (``SEED_COUNTS``) and the kernel lane's candidacies that its
@@ -208,9 +233,10 @@ def kernel_inputs(m: int, n: int, k: int, device, centred: bool = False):
 def bound_ms(m: int, n: int, k: int) -> tuple:
     """The least time the card could take for one call: each input read
     once (points, sq, idx), the output written once; 2n flops per output
-    element for the dot product plus 3 for the epilogue."""
-    nbytes = 4 * (m * n + m + k + k * m)
-    flops = k * m * (2 * n + 3)
+    element for the dot product plus 3 for the epilogue (the kernel
+    module's ``seed_rows_work``, which ``cost_of`` counts too)."""
+    from repro_torch.kernels.distance import seed_rows_work
+    flops, nbytes = seed_rows_work(m, n, k)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -729,9 +755,12 @@ def check_attention(name: str, device) -> dict:
 
 def rmsnorm_bound_ms(n: int, d: int, itemsize: int) -> tuple:
     """x and w read once, y written once; 4 float32 operations an
-    element (square-add, scale, 1 + w, product)."""
-    t_bytes = (2 * n * d + d) * itemsize / HBM_BYTES_PER_S
-    t_ops = 4 * n * d / F32_FLOP_PER_S
+    element (square-add, scale, 1 + w, product): the kernel module's
+    ``rmsnorm_work``, which ``cost_of`` counts too."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_work
+    flops, nbytes = rmsnorm_work(n, d, itemsize)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -751,18 +780,19 @@ def attention_bound_ms(name: str, itemsize: int) -> tuple:
     the positions read once, the output written once; 4·dh operations
     (score and P·V) for every unmasked (query, key, head) of this case's
     positions, at the tensor-core rate for bf16 and the float32 rate
-    otherwise."""
+    otherwise.  The counts are the kernel module's ``attention_work``,
+    which ``cost_of`` counts too."""
     import numpy as np
+    from repro_torch.kernels.flash_attention import attention_work
     c = attention_case(name)
     Q, K = len(c["q_pos"]), len(c["k_pos"])
     qp, kp = c["q_pos"][:, None], c["k_pos"][None, :]
     live = kp <= qp
     if c["window"] is not None:
         live &= kp > qp - c["window"]
-    nbytes = (itemsize * (2 * Q * c["H"] * c["dh"]
-                          + 2 * needed_keys(live) * c["KV"] * c["dh"])
-              + 4 * (Q + K))
-    ops = 4 * c["dh"] * c["H"] * int(np.count_nonzero(live))
+    ops, nbytes = attention_work(1, Q, c["H"], c["KV"], c["dh"], K, itemsize,
+                                 int(np.count_nonzero(live)),
+                                 needed_keys(live))
     rate = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -1478,12 +1508,12 @@ def wkv6_bound_ms(B: int, T: int, H: int, dh: int, itemsize: int) -> tuple:
     rate outside the tensor cores: r·S, dh² fused multiply-adds (2·dh²),
     and the state update w_i·S_ij + k_i·v_j (3·dh²), so 5·dh².  The bonus
     term factors as (Σ_i r_i·u_i·k_i)·v_j, O(dh), as the decode kernel
-    computes it."""
-    n = B * T * H * dh
-    nbytes = 3 * itemsize * n + 4 * n + 4 * H * dh + 8 * B * H * dh * dh \
-        + 4 * n
+    computes it.  The counts are the kernel module's ``wkv6_work``, which
+    ``cost_of`` counts too."""
+    from repro_torch.kernels.wkv6 import wkv6_work
+    flops, nbytes = wkv6_work(B, T, H, dh, itemsize)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 5 * B * H * T * dh * dh / F32_FLOP_PER_S
+    t_ops = flops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1781,6 +1811,481 @@ def chaos_phase(device, seeds=CHAOS_SEEDS) -> dict:
             "decisions": _sum_counts(decisions)}
 
 
+# -- phase 15 --------------------------------------------------------------
+
+# Gradients of the kernel forward plus the backward formulas against
+# torch.autograd.grad through the plain versions, both float32 with TF32
+# off: max |got - want| <= GRAD_TOL * max |want| for each gradient (the
+# two differ in summation order: the kernels', cuBLAS's and the CPU's).
+GRAD_TOL = 1e-4
+# RMSNorm rows: st-100m's training call (8 x 1024 tokens of width 768)
+# and (300, 3840).  Attention: st-100m's heads at S = 1024 (B = 2),
+# causal, and danube-smoke's GQA heads (4 over 2, dh = 16) with its
+# 16-token window and a logit softcap, at S = 256.
+TRAIN_RMS_SHAPES = ((8192, 768), (300, 3840))
+TRAIN_ATTN_CASES = {
+    "st-100m": dict(B=2, S=1024, H=12, KV=12, dh=64, window=None,
+                    softcap=None),
+    "danube-gqa-softcap": dict(B=2, S=256, H=4, KV=2, dh=16, window=16,
+                               softcap=30.0)}
+TRAIN_RMS_MAIN, TRAIN_ATTN_MAIN = (8192, 768), "st-100m"
+
+
+def _within_scale(got, want, tol: float, what: str) -> float:
+    """max |got - want| over max |want|; raises above ``tol``."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max |err| {err} above {tol} x scale "
+                             f"{scale}")
+    return err / scale if scale else 0.0
+
+
+def train_rmsnorm_inputs(n: int, d: int, device):
+    """Seeded float32 x (n, d), w (d,) and an output gradient g (n, d)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(104729 * n + d)
+    ts = (2.0 * rng.standard_normal((n, d)) + 0.5,
+          0.1 * rng.standard_normal(d), rng.standard_normal((n, d)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in ts]
+
+
+def train_attention_inputs(name: str, device):
+    """Seeded float32 q, k, v, positions 0..S-1 and an output gradient."""
+    import numpy as np
+    import torch
+    c = TRAIN_ATTN_CASES[name]
+    B, S, H, KV, dh = c["B"], c["S"], c["H"], c["KV"], c["dh"]
+    rng = np.random.default_rng(list(TRAIN_ATTN_CASES).index(name) + 31)
+    q, k, v, g = (rng.standard_normal(s) for s in (
+        (B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh), (B, S, H, dh)))
+    ts = [torch.as_tensor(a, dtype=torch.float32, device=device)
+          for a in (q, k, v, g)]
+    pos = torch.arange(S, dtype=torch.int32, device=device)
+    return ts[:3], pos, ts[3]
+
+
+def _grads(fn, inputs, g):
+    """(output, input gradients) of ``fn(*inputs)`` for output gradient
+    ``g``, through fresh leaves."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+def check_train_rmsnorm(n: int, d: int, device) -> dict:
+    """RmsnormFunction (kernel forward, plain backward formulas) against
+    autograd through the plain version: the output within F32_TOL and dx,
+    dw within GRAD_TOL of their scales."""
+    from repro_torch import kernels as K
+    x, w, g = train_rmsnorm_inputs(n, d, device)
+    y, (dx, dw) = _grads(lambda a, b: K.RmsnormFunction.apply(a, b, RMS_EPS),
+                         (x, w), g)
+    yp, (dxp, dwp) = _grads(lambda a, b: K.rmsnorm_ref(a, b, RMS_EPS),
+                            (x, w), g)
+    what = f"training rmsnorm ({n}, {d})"
+    return {"fwd": _within_scale(y, yp, F32_TOL, what + " output"),
+            "dx": _within_scale(dx, dxp, GRAD_TOL, what + " dx"),
+            "dw": _within_scale(dw, dwp, GRAD_TOL, what + " dw")}
+
+
+def check_train_attention(name: str, device) -> dict:
+    """FlashAttentionFunction (kernel forward, plain backward formulas)
+    against autograd through the plain version: the output within F32_TOL
+    and dq, dk, dv within GRAD_TOL of their scales."""
+    from repro_torch import kernels as K
+    c = TRAIN_ATTN_CASES[name]
+    (q, k, v), pos, g = train_attention_inputs(name, device)
+    opts = dict(causal=True, window=c["window"], softcap=c["softcap"])
+    o, grads = _grads(lambda a, b, d: K.FlashAttentionFunction.apply(
+        a, b, d, pos, pos, True, c["window"], c["softcap"]), (q, k, v), g)
+    op, gp = _grads(lambda a, b, d: K.flash_attention_ref(
+        a, b, d, pos, pos, **opts), (q, k, v), g)
+    what = f"training attention {name}"
+    out = {"fwd": _within_scale(o, op, F32_TOL, what + " output")}
+    for tag, a, b in zip(("dq", "dk", "dv"), grads, gp):
+        out[tag] = _within_scale(a, b, GRAD_TOL, f"{what} {tag}")
+    return out
+
+
+def _fwd_bwd_ms(fn, inputs, g, iters: int) -> float:
+    """CUDA-event ms of one forward and backward of ``fn`` through
+    autograd (fresh leaves made outside the timed calls)."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+
+    def call():
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+    return cuda_ms(call, iters)
+
+
+def time_train_rmsnorm(n: int, d: int) -> dict:
+    """float32 on the card: the kernel forward, the backward formulas, the
+    plain version's forward and its forward and backward, and
+    ``F.rms_norm`` with weight 1 + w, forward and forward and backward
+    (the library's times, for the record); the forward's bound."""
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+    x, w, g = train_rmsnorm_inputs(n, d, "cuda")
+    flops, nbytes = RN.rmsnorm_work(n, d, 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    w1 = 1.0 + w
+    return {
+        "ms": cuda_ms(lambda: K.rmsnorm(x, w, RMS_EPS), 100),
+        "backward_ms": cuda_ms(
+            lambda: K.rmsnorm_backward(x, w, g, RMS_EPS), 100),
+        "plain_ms": cuda_ms(lambda: K.rmsnorm_ref(x, w, RMS_EPS), 100),
+        "library_ms": cuda_ms(lambda: F.rms_norm(x, (d,), w1, RMS_EPS), 100),
+        "plain_fwd_bwd_ms": _fwd_bwd_ms(
+            lambda a, b: K.rmsnorm_ref(a, b, RMS_EPS), (x, w), g, 50),
+        "library_fwd_bwd_ms": _fwd_bwd_ms(
+            lambda a, b: F.rms_norm(a, (d,), 1.0 + b, RMS_EPS), (x, w), g,
+            50),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_plan_of_shape(c: dict):
+    """The kernel path :func:`attention_plan` picks for a float32 training
+    case."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_plan
+    return attention_plan(c["B"], c["S"], c["H"], c["KV"], c["dh"], c["S"],
+                          torch.float32)
+
+
+def time_train_attention(name: str) -> dict:
+    """float32 on the card: the kernel forward, the backward formulas, the
+    plain version's forward and its forward and backward, and
+    ``F.scaled_dot_product_attention`` over k/v repeated to the query
+    heads (causal, or a boolean window mask), forward and forward and
+    backward (None where the case has a softcap, which SDPA does not
+    compute); the forward's bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    c = TRAIN_ATTN_CASES[name]
+    (q, k, v), pos, g = train_attention_inputs(name, "cuda")
+    opts = dict(causal=True, window=c["window"], softcap=c["softcap"])
+    o = K.flash_attention(q, k, v, pos, pos, **opts)
+    live = FA.live_mask(pos, pos, True, c["window"])
+    flops, nbytes = FA.attention_work(
+        c["B"], c["S"], c["H"], c["KV"], c["dh"], c["S"], 4,
+        int(live.sum()), FA.needed_keys(live))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    res = {
+        "ms": cuda_ms(lambda: K.flash_attention(q, k, v, pos, pos, **opts),
+                      50),
+        "backward_ms": cuda_ms(lambda: K.flash_attention_backward(
+            q, k, v, pos, pos, o, g, **opts), 20),
+        "plain_ms": cuda_ms(lambda: K.flash_attention_ref(
+            q, k, v, pos, pos, **opts), 20),
+        "library_ms": None,
+        "plain_fwd_bwd_ms": _fwd_bwd_ms(
+            lambda a, b, d: K.flash_attention_ref(a, b, d, pos, pos, **opts),
+            (q, k, v), g, 10),
+        "library_fwd_bwd_ms": None,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plan": attention_plan_of_shape(c).path}
+    if c["softcap"] is None:
+        rep = c["H"] // c["KV"]
+        heads = [t.transpose(1, 2) if t.shape[2] == c["H"] else
+                 t.repeat_interleave(rep, dim=2).transpose(1, 2)
+                 for t in (q, k, v)]
+        gh = g.transpose(1, 2)
+        kw = ({"is_causal": True} if c["window"] is None
+              else {"attn_mask": live})
+        res["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(*heads, **kw), 20)
+        res["library_fwd_bwd_ms"] = _fwd_bwd_ms(
+            lambda a, b, d: F.scaled_dot_product_attention(a, b, d, **kw),
+            heads, gh, 20)
+    return res
+
+
+# -- phase 16 --------------------------------------------------------------
+
+# Training parity, card vs host, float32 with TF32 off: the loss of one
+# step within TRAIN_LOSS_RTOL of the host's, every gradient within
+# GRAD_TOL of its scale; the losses of TRAIN_PARITY_STEPS AdamW steps
+# within TRAIN_TRAJ_RTOL (AdamW's first step moves a parameter by lr times
+# the sign of its gradient, so two sides whose gradients differ in
+# rounding part by up to 2 lr there).
+TRAIN_LOSS_RTOL, TRAIN_TRAJ_RTOL = 1e-5, 1e-4
+TRAIN_PARITY_STEPS = 3
+
+
+def train_parity_phase(cfg, device, batch: int = 2, seq: int = 256,
+                       steps: int = TRAIN_PARITY_STEPS,
+                       seed: int = 0) -> dict:
+    """Seeded weights on the host and a copy on ``device``: the loss and
+    every gradient of one step, then the losses of ``steps`` AdamW steps,
+    on each; on the card every forward launches 2L+1 RMSNorms and L
+    attentions."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.data import DataConfig, host_batch, to_device
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    host = {k: p.detach() for k, p in
+            transformer.init(cfg, seed, "cpu").named_parameters()}
+    dcfg = DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=20)
+    skeleton = transformer.Transformer(cfg, "meta", seed=None)
+    out = {}
+    for side, dev in (("card", device), ("host", "cpu")):
+        params = {k: t.to(dev) for k, t in host.items()}
+        K.reset_launches()
+        loss, _, grads = value_and_grad(
+            skeleton, params, to_device(host_batch(dcfg, 0), dev))
+        step = make_train_step(cfg, opt_cfg)
+        opt = init_opt_state(params)
+        losses = []
+        for s in range(steps + 1):
+            params, opt, m = step(params, opt,
+                                  to_device(host_batch(dcfg, s), dev))
+            losses.append(float(m["loss"]))
+        out[side] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                     losses, dict(K.LAUNCHES))
+    (c_loss, c_grads, c_losses, launches), (h_loss, h_grads, h_losses, _) = \
+        out["card"], out["host"]
+    if not abs(c_loss - h_loss) <= TRAIN_LOSS_RTOL * abs(h_loss):
+        raise AssertionError(f"training loss card {c_loss}, host {h_loss}")
+    grad_err = {k: _within_scale(c_grads[k], h_grads[k], GRAD_TOL,
+                                 f"gradient {k}") for k in h_grads}
+    for a, b in zip(c_losses, h_losses):
+        if not abs(a - b) <= TRAIN_TRAJ_RTOL * abs(b):
+            raise AssertionError(f"AdamW losses card {c_losses}, host "
+                                 f"{h_losses}")
+    if _on_card(device):
+        _check_launches(launches, cfg, steps + 2, "training parity")
+    worst = max(grad_err, key=grad_err.get)
+    return {"loss": [c_loss, h_loss], "losses": [c_losses, h_losses],
+            "worst_grad": [worst, grad_err[worst]], "launches": launches,
+            "forwards": steps + 2}
+
+
+# -- phase 17 --------------------------------------------------------------
+
+TRAIN_ARGV = ("--arch", "st-100m", "--steps", "20", "--batch", "8",
+              "--seq", "1024")
+# The traced trainer: st-100m FULL over 4 emulated shards, shard 3 running
+# 4 fwd_bwd iterations a step, 2 steps, analyzed with the train corpus's
+# threshold.
+TRACE_ITERS = (1, 1, 1, 4)
+TRACE_STEPS = 2
+TRACE_ANALYZER_KW = {"threshold_frac": 0.45}
+
+
+def train_phase(argv, device) -> dict:
+    """Train through ``repro_torch.launch.train`` with launch counts from
+    0: the loss must fall (the mean of the last 5 steps below the mean of
+    the first 5) and on the card every forward must launch 2L+1 RMSNorms
+    and L attentions; then one more step profiled (on the card)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+    args = train.parser().parse_args([*argv, "--device", str(device)])
+    trainer = train.build_trainer(args)
+    on_card = _on_card(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not \
+            np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"training loss did not fall: {losses}")
+    if on_card:
+        _check_launches(launches, trainer.cfg, len(hist), "training")
+    tp = train.throughput(trainer, args)
+    return {"losses": losses, "launches": launches, "steps": len(hist),
+            "wall_s": wall, **tp,
+            "breakdown": train_breakdown(trainer) if on_card else None}
+
+
+def train_breakdown(trainer) -> dict:
+    """One more training step under torch.profiler (CUDA activity, after
+    a pause: CUPTI can miss the first milliseconds): the host wall of the
+    step, the device's busy time (its kernels' and copies' times summed),
+    the idle share 1 - busy / wall, the device operations, each ported
+    kernel's launches (held to the launch counter) and the operations
+    that took longest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        trainer.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {n: K.LAUNCHES[n] - before[n] for n in before}
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    profiled, lost = _profiled_launches(rows, launched)
+    sc = symbol_counts(rows)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
+            "idle_share": 1.0 - busy / wall,
+            "operations": sum(r[1] for r in rows),
+            "profiled_launches": profiled, "lost": lost,
+            "counted_launches": {n: c for n, c in launched.items() if c},
+            "ported_ms": {n: sum(sc["times"].get(s, 0.0)
+                                 for s in _symbols(n)) / 1e3
+                          for n, c in launched.items() if c},
+            "top": [(t / 1e3, c, key[:90]) for t, c, key in rows[:12]]}
+
+
+def traced_train_phase(cfg, device, batch: int = 8, seq: int = 1024,
+                       iters=TRACE_ITERS, steps: int = TRACE_STEPS) -> dict:
+    """A traced Trainer of ``cfg``: len(iters) emulated shards, shard i
+    running iters[i] fwd_bwd iterations a step.  The trace, analyzed on
+    the kernel lane and on the numpy lane, must give equal verdict docs
+    naming train/fwd_bwd as the dissimilarity; on the card every forward
+    (warmup, timed repeat and the first step's cost count) launched 2L+1
+    RMSNorms and L attentions."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import AutoAnalyzer
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    trainer = Trainer(
+        cfg, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=20),
+        DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab),
+        TrainerConfig(steps=steps, ckpt_every=0, trace=True,
+                      trace_shards=len(iters), trace_iters=tuple(iters),
+                      trace_meta={"analyzer_kw": dict(TRACE_ANALYZER_KW)}),
+        device=device)
+    on_card = _on_card(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    runner = trainer.runner
+    forwards = steps * (runner.warmup + runner.repeats) * sum(iters) \
+        + iters[0]
+    if on_card:
+        _check_launches(launches, cfg, forwards, "traced training")
+    trace = trainer.trace
+    K.reset_launches()
+    an_k = AutoAnalyzer(trainer.region_tree, distance_backend="kernel",
+                        device=device, **TRACE_ANALYZER_KW)
+    res_k = an_k.analyze_trace(trace)
+    analysis_launches = K.LAUNCHES["multi_seed_rows"]
+    res_n = AutoAnalyzer(trainer.region_tree, distance_backend="numpy",
+                         **TRACE_ANALYZER_KW).analyze_trace(trace)
+    doc_k, doc_n = res_k.verdict.doc(), res_n.verdict.doc()
+    if doc_k != doc_n or "train/fwd_bwd" not in \
+            res_n.verdict.dissimilarity_paths:
+        raise AssertionError(f"traced training verdicts:\nkernel {doc_k}\n"
+                             f"numpy  {doc_n}")
+    fid = trainer.region_tree.by_path("train/fwd_bwd").region_id
+    oid = trainer.region_tree.by_path("train/optimizer").region_id
+    return {"steps": [{k: h[k] for k in ("loss", "seconds",
+                                         "per_shard_seconds")}
+                      for h in hist],
+            "wall_s": wall, "launches": launches, "forwards": forwards,
+            "costs": {"train/fwd_bwd": runner.costs[fid][:2],
+                      "train/optimizer": runner.costs[oid][:2]},
+            "device_s": {p: runner.device_s[r].tolist() for p, r in
+                         (("train/fwd_bwd", fid),
+                          ("train/optimizer", oid))} if on_card else None,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if on_card else None),
+            "verdict": doc_n, "analysis_launches": analysis_launches,
+            "seed_counts": dict(K.SEED_COUNTS),
+            "decisions": dict(an_k.decisions)}
+
+
+# -- phase 18 --------------------------------------------------------------
+
+# The corpus entries of the training and serving slice: the five serving
+# entries, the three dense train and recovery entries and the checkpoint
+# chaos entry, at CHAOS_SEEDS on the kernel lane, the trainers on the card.
+NEW_ENTRIES = ("serving/kv-cache-thrash", "serving/kv-thrash-onset",
+               "serving/interleave-imbalance", "serving/hot-expert-routing",
+               "serving/long-tail-prompt-straggler",
+               "train/fwdbwd-straggler-smoke",
+               "train/straggler-remesh-recovery",
+               "train/ckpt-stall-reschedule-recovery",
+               "chaos/corrupt-latest-checkpoint")
+
+
+def _outcome(entry, r) -> dict:
+    """The part of a run the reference pins for each kind of entry, and
+    whether the run meets it: the exact completed requests (serving), the
+    mitigation (recovery), the fallback step and exactness (checkpoint
+    chaos)."""
+    if entry.serving is not None:
+        return {"completed": r.completed,
+                "ok": r.completed == entry.serving.min_completed}
+    if entry.recovery is not None:
+        return {"action": r.recovery_kind, "window": r.mitigation_window,
+                "clean_after": r.clean_after, "ok": r.recovered}
+    if entry.chaos is not None:
+        o = r.chaos_outcome
+        return {"fallback_from": o.fallback_from,
+                "restored_step": o.restored_step,
+                "exact": o.matched == o.comparable == 1,
+                "ok": (o.restored_step == o.fallback_from - 1
+                       and o.matched == o.comparable == 1)}
+    return {"onset_window": r.onset_window, "ok": True}
+
+
+def new_entries_phase(device, seeds=CHAOS_SEEDS,
+                      names=NEW_ENTRIES) -> dict:
+    """``names`` at ``seeds`` through the port's corpus on ``device``
+    (``run_entry_robust``: the wall-clock train and recovery entries get
+    the corpus's one retry): each passes with the reference's outcome
+    (``_outcome``).  Returns each run's outcome and wall, the launches of
+    every kernel and the re-decisions, counted from 0."""
+    from repro_torch import kernels as K
+    from repro_torch.scenarios import CORPUS, run_entry_robust
+    K.reset_launches()
+    runs, decisions = {}, []
+    for name in names:
+        entry = CORPUS[name]
+        for seed in seeds:
+            r = run_entry_robust(entry, seed=seed,
+                                 analyzer_overrides={"device": device})
+            got = _outcome(entry, r)
+            if not (r.passed and got["ok"]):
+                raise AssertionError(
+                    f"{name}@{seed}: passed {r.passed}, found "
+                    f"{sorted(r.found)}, precision {r.precision}, outcome "
+                    f"{got}")
+            runs[f"{name}@{seed}"] = {**got,
+                                      "walls_s": list(r.attempt_walls)}
+            decisions.append(r.decisions)
+    launches = dict(K.LAUNCHES)
+    if _on_card(device) and not (launches["multi_seed_rows"]
+                                 and launches["rmsnorm"]
+                                 and launches["flash_attention"]):
+        raise AssertionError(f"the new entries launched {launches}")
+    return {"runs": runs, "launches": launches,
+            "seed_counts": dict(K.SEED_COUNTS),
+            "decisions": _sum_counts(decisions)}
+
+
 # -- driver ----------------------------------------------------------------
 
 def main() -> int:
@@ -2036,6 +2541,91 @@ def main() -> int:
         f"{chaos['seed_counts']}; re-decided {chaos['decisions']})")
     log(f"[14] wall per run, s: {json.dumps(chaos['walls_s'])}")
 
+    # 15. the training path's kernels with their gradients vs plain
+    tr_rms, tr_attn = {}, {}
+    for n, d in TRAIN_RMS_SHAPES:
+        tr_rms[(n, d)] = r = {**check_train_rmsnorm(n, d, "cuda"),
+                              **time_train_rmsnorm(n, d)}
+        log(f"[15] rmsnorm ({n}, {d}) f32 with gradients: max error over "
+            f"scale output {r['fwd']:.3g} (tolerance {F32_TOL}), dx "
+            f"{r['dx']:.3g}, dw {r['dw']:.3g} (tolerance {GRAD_TOL}); "
+            f"kernel forward {r['ms']:.6f} ms, backward formulas "
+            f"{r['backward_ms']:.6f} ms, plain forward {r['plain_ms']:.6f} "
+            f"ms, forward+backward {r['plain_fwd_bwd_ms']:.6f} ms, "
+            f"F.rms_norm forward {r['library_ms']:.6f} ms, forward+backward "
+            f"{r['library_fwd_bwd_ms']:.6f} ms, forward bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    for name, case in TRAIN_ATTN_CASES.items():
+        tr_attn[name] = r = {**check_train_attention(name, "cuda"),
+                             **time_train_attention(name)}
+        lib = ("none (softcap)" if r["library_ms"] is None else
+               f"{r['library_ms']:.6f} ms, forward+backward "
+               f"{r['library_fwd_bwd_ms']:.6f} ms")
+        log(f"[15] attention {name} {case} f32 with gradients, path "
+            f"{r['plan']}: max error over scale output {r['fwd']:.3g} "
+            f"(tolerance {F32_TOL}), dq {r['dq']:.3g}, dk {r['dk']:.3g}, "
+            f"dv {r['dv']:.3g} (tolerance {GRAD_TOL}); kernel forward "
+            f"{r['ms']:.6f} ms, backward formulas {r['backward_ms']:.6f} "
+            f"ms, plain forward {r['plain_ms']:.6f} ms, forward+backward "
+            f"{r['plain_fwd_bwd_ms']:.6f} ms, SDPA forward {lib}, "
+            f"forward bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+    # 16. training parity, card vs host
+    t0 = time.perf_counter()
+    tparity = train_parity_phase(parity_config("st-100m"), "cuda")
+    log(f"[16] st-100m width, 2 layers, f32, one step card vs host: loss "
+        f"{tparity['loss']} (tolerance {TRAIN_LOSS_RTOL} relative), worst "
+        f"gradient over its scale {tparity['worst_grad']} (tolerance "
+        f"{GRAD_TOL}); losses of {TRAIN_PARITY_STEPS} AdamW steps card "
+        f"{tparity['losses'][0]}, host {tparity['losses'][1]} (tolerance "
+        f"{TRAIN_TRAJ_RTOL} relative); card launches {tparity['launches']} "
+        f"over {tparity['forwards']} forwards; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 17. training st-100m FULL, profiled, then a traced trainer
+    from repro_torch.configs import get_arch
+    trained = train_phase(TRAIN_ARGV, "cuda")
+    log(f"[17] train {' '.join(TRAIN_ARGV)}: losses "
+        f"{json.dumps(trained['losses'])}; launches {trained['launches']} "
+        f"(= 25 and 12 per forward, {trained['steps']} forwards); median "
+        f"step {trained['median_step_s'] * 1e3:.4f} ms (step 0 excluded), "
+        f"{trained['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{trained['peak_memory_bytes']} bytes; wall {trained['wall_s']:.1f}"
+        f" s")
+    bd = trained["breakdown"]
+    log(f"[17] one training step (torch.profiler, CUDA only): host wall "
+        f"{bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} ms, idle "
+        f"share {bd['idle_share']:.4f}, {bd['operations']} device "
+        f"operations; ported kernels' device ms {bd['ported_ms']}, launches"
+        f" profiled {bd['profiled_launches']} against counted "
+        f"{bd['counted_launches']}{'; ' + bd['lost'] if bd['lost'] else ''}"
+        f"; operations by device time (ms, count):")
+    for t, n, key in bd["top"]:
+        log(f"    {t:10.4f} {n:6d}  {key}")
+    traced = traced_train_phase(get_arch("st-100m").full, "cuda")
+    log(f"[17] traced trainer st-100m FULL, shards' fwd_bwd iterations "
+        f"{list(TRACE_ITERS)}, {TRACE_STEPS} steps: "
+        f"{json.dumps(traced['steps'])}; launches {traced['launches']} over "
+        f"{traced['forwards']} forwards; cost_of (FLOPs, bytes) "
+        f"{traced['costs']}; CUDA-event device s {traced['device_s']}; "
+        f"peak memory {traced['max_memory_allocated']} bytes; wall "
+        f"{traced['wall_s']:.1f} s")
+    log(f"[17] verdict, equal on the kernel and numpy lanes "
+        f"({traced['analysis_launches']} seed-row launches, by seed count k "
+        f"{traced['seed_counts']}; re-decided {traced['decisions']}): "
+        f"{json.dumps(traced['verdict'], sort_keys=True)}")
+
+    # 18. the training and serving slice's corpus entries on the card
+    t0 = time.perf_counter()
+    newe = new_entries_phase("cuda")
+    log(f"[18] {len(NEW_ENTRIES)} serving, train, recovery and checkpoint "
+        f"entries at seeds {list(CHAOS_SEEDS)} pass on the kernel lane with "
+        f"the reference's outcomes ({len(newe['runs'])} runs, "
+        f"{time.perf_counter() - t0:.1f} s; launches {newe['launches']}, "
+        f"seed-row launches by seed count k {newe['seed_counts']}; "
+        f"re-decided {newe['decisions']})")
+    log(f"[18] runs: {json.dumps(newe['runs'])}")
+
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
         "name": "multi_seed_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2060,7 +2650,9 @@ def main() -> int:
                         "runtime": runtime["seed_counts"],
                         "stream_fleet": stream["seed_counts"],
                         "live_rwkv": live["seed_counts"],
-                        "chaos": chaos["seed_counts"]},
+                        "chaos": chaos["seed_counts"],
+                        "train_trace": traced["seed_counts"],
+                        "new_entries": newe["seed_counts"]},
         "decisions": {"corpus": corpus["decisions"],
                       "fleet": fleet["decisions"],
                       "serve_gemma": served["decisions"],
@@ -2068,7 +2660,9 @@ def main() -> int:
                       "runtime": runtime["decisions"],
                       "stream_fleet": stream["decisions"],
                       "live_rwkv": live["decisions"],
-                      "chaos": chaos["decisions"]},
+                      "chaos": chaos["decisions"],
+                      "train_trace": traced["decisions"],
+                      "new_entries": newe["decisions"]},
     }]
     for name, errs, times, main, prefill, shape in (
             ("rmsnorm", rms_err, rms_t, RMS_MAIN, RMS_PREFILL, list),
@@ -2102,6 +2696,14 @@ def main() -> int:
     rms["rwkv_decode"] = {"shape": list(RMS_RWKV), **rms_t[RMS_RWKV]}
     rms["paths"] = rms_paths
     rms["plan_sweep"] = rms_sweep
+    rms["launches_train"] = trained["launches"]["rmsnorm"]
+    rms["train"] = {"shape": list(TRAIN_RMS_MAIN), "dtype": "float32",
+                    **tr_rms[TRAIN_RMS_MAIN]}
+    attn["launches_train"] = trained["launches"]["flash_attention"]
+    attn["train"] = {"case": TRAIN_ATTN_MAIN, "dtype": "float32",
+                     **TRAIN_ATTN_CASES[TRAIN_ATTN_MAIN],
+                     **tr_attn[TRAIN_ATTN_MAIN]}
+    attn["train_cases"] = {name: r for name, r in tr_attn.items()}
     t = wkv_t[WKV_MAIN]
     kernels.append({
         "name": "wkv6", "route": "cuda",

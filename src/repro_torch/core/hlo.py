@@ -132,9 +132,17 @@ def cost_of(fn: Callable[..., Any], *args) -> Tuple[float, float]:
     tensor inputs and outputs, which counts *unfused* traffic — every
     intermediate written and read again — where XLA's ``bytes accessed``
     counts the fused module's.  A loop in ``fn`` is counted once per
-    iteration it runs (XLA counts a ``fori_loop`` body once).  The host
-    pays several times a plain call's cost for the counting, so a caller
-    counts once, outside any timed call."""
-    with FlopCounterMode(display=False) as flops, _ByteCounter() as nbytes:
+    iteration it runs (XLA counts a ``fori_loop`` body once).  The port's
+    kernels (RMSNorm, attention, WKV-6, seed rows) are ctypes launches
+    that no aten-level counter sees: each wrapper call adds its kernel's
+    analytic FLOPs and bytes instead (:func:`repro_torch.kernels.
+    counting_costs`), on the card and, in place of its plain version's
+    aten ops, on the CPU.  The host pays several times a plain call's
+    cost for the counting, so a caller counts once, outside any timed
+    call."""
+    from repro_torch.kernels import counting_costs
+    with counting_costs() as kernels, FlopCounterMode(display=False) as \
+            flops, _ByteCounter() as nbytes:
         fn(*args)
-    return float(flops.get_total_flops()), float(nbytes.bytes)
+    return (float(flops.get_total_flops()) + kernels[0],
+            float(nbytes.bytes) + kernels[1])

@@ -4,8 +4,18 @@ version.  Kernels are built at first use (``build.py``), never on import.
 ``LAUNCHES`` counts the launches of each CUDA kernel, incremented by its
 wrapper where it launches the kernel and nowhere else, so a run can show
 that its main path went through the kernels.
+
+:func:`counting_costs` counts the work of the wrapper calls made inside
+it (``core/hlo.py::cost_of`` opens one): each wrapper decorated with
+:func:`counted` adds its kernel's analytic FLOPs and bytes, the counts
+``chip_smoke.py``'s bounds use, and runs outside the active PyTorch
+dispatch modes.  The aten-level counters of ``cost_of`` cannot see a
+ctypes launch on the card, and on the CPU they must not count the plain
+version as well, so a count is the same on both devices.
 """
-from typing import Dict
+import contextlib
+import functools
+from typing import Callable, Dict, Iterator, List, Tuple
 
 LAUNCHES: Dict[str, int] = {"multi_seed_rows": 0, "rmsnorm": 0,
                             "flash_attention": 0, "wkv6": 0}
@@ -17,13 +27,53 @@ def reset_launches() -> None:
     SEED_COUNTS.clear()
 
 
+# The [flops, bytes] of each active counting_costs() block.
+_COSTS: List[List[float]] = []
+
+
+@contextlib.contextmanager
+def counting_costs() -> Iterator[List[float]]:
+    """Count ``[flops, bytes]`` of the counted wrapper calls made inside
+    the block (nested blocks each count their own calls)."""
+    counts = [0.0, 0.0]
+    _COSTS.append(counts)
+    try:
+        yield counts
+    finally:
+        _COSTS.remove(counts)
+
+
+def counted(work: Callable[..., Tuple[float, float]]):
+    """Decorate a kernel wrapper: while a cost count is active, a call adds
+    ``work(*args, **kw)`` (its FLOPs and bytes) to every active count and
+    runs with PyTorch's dispatch modes (the aten-level counters) off."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            if not _COSTS:
+                return fn(*args, **kw)
+            from torch.utils._python_dispatch import _disable_current_modes
+            with _disable_current_modes():
+                flops, nbytes = work(*args, **kw)
+                for counts in _COSTS:
+                    counts[0] += flops
+                    counts[1] += nbytes
+                return fn(*args, **kw)
+        return call
+    return wrap
+
+
 from .distance import (SEED_COUNTS, multi_seed_rows,  # noqa: E402
                        multi_seed_rows_ref)
-from .flash_attention import (flash_attention,  # noqa: E402
+from .flash_attention import (FlashAttentionFunction,  # noqa: E402
+                              flash_attention, flash_attention_backward,
                               flash_attention_ref)
-from .rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from .rmsnorm import (RmsnormFunction, rmsnorm,  # noqa: E402
+                      rmsnorm_backward, rmsnorm_ref)
 from .wkv6 import wkv6, wkv6_ref  # noqa: E402
 
-__all__ = ["LAUNCHES", "reset_launches", "multi_seed_rows",
-           "multi_seed_rows_ref", "rmsnorm", "rmsnorm_ref",
-           "flash_attention", "flash_attention_ref", "wkv6", "wkv6_ref"]
+__all__ = ["LAUNCHES", "reset_launches", "counting_costs", "counted",
+           "multi_seed_rows", "multi_seed_rows_ref", "rmsnorm", "rmsnorm_ref",
+           "rmsnorm_backward", "RmsnormFunction", "flash_attention",
+           "flash_attention_ref", "flash_attention_backward",
+           "FlashAttentionFunction", "wkv6", "wkv6_ref"]

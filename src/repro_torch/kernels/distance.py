@@ -31,11 +31,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, counted
 
 # Launches of the seed-row kernel by seed count k (one per launch, beside
 # LAUNCHES["multi_seed_rows"]; reset_launches() clears it): the k the
@@ -195,6 +195,18 @@ def _kernel_fn():
     return fn
 
 
+def seed_rows_work(m: int, n: int, k: int) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one call: points, sq and idx read once, the
+    (k, m) rows written once; 2n operations per output element for the
+    dot product and 3 for the epilogue."""
+    return float(k * m * (2 * n + 3)), float(4 * (m * n + m + k + k * m))
+
+
+def _work(points, sq, idx) -> Tuple[float, float]:
+    return seed_rows_work(points.shape[0], points.shape[1], idx.shape[0])
+
+
+@counted(_work)
 def multi_seed_rows(points: torch.Tensor, sq: torch.Tensor,
                     idx: torch.Tensor) -> torch.Tensor:
     """Squared-distance rows of ``points[idx]`` against all points.

@@ -22,16 +22,22 @@ alone (no value of the positions is read on the host): split-K decode
 All keep the softmax probabilities in float32 or, on the tensor cores, as
 bf16 hi + lo parts; the reference's ``naive_attention`` rounds them to v's
 dtype before P·V, so in bfloat16 the two differ by that rounding.
+
+:class:`FlashAttentionFunction` is the differentiable call the model
+uses: its forward is :func:`flash_attention` (the kernel on the card), its
+backward the plain PyTorch formulas of :func:`flash_attention_backward` on
+both devices (the reference has no backward kernel: its training
+differentiates the jnp ``naive_attention`` / ``chunked_attention``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, counted
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 DH_MAX = 256
@@ -96,6 +102,19 @@ def attention_plan(B: int, Q: int, H: int, KV: int, dh: int, K: int,
     return AttentionPlan("simt")
 
 
+def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+              window: Optional[int]) -> torch.Tensor:
+    """(Q, K) bool: the (query, key) pairs the mask keeps."""
+    qp, kp = q_pos[:, None], k_pos[None, :]
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
@@ -107,14 +126,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(dh)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qp = q_pos[:, None]
-    kp = k_pos[None, :]
-    mask = torch.ones((Q, k.shape[1]), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kp <= qp
-    if window is not None:
-        mask &= kp > qp - window
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(live_mask(q_pos, k_pos, causal, window), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(B, Q, H, dh).to(q.dtype)
@@ -167,6 +179,37 @@ def _kernel_fn(dtype: torch.dtype):
     return fn
 
 
+def needed_keys(live: torch.Tensor) -> int:
+    """Keys whose k and v the function must read, from the (Q, K) mask of
+    live pairs: those live for some query, or all K when a query has no
+    live key (it averages v over every key)."""
+    if not bool(live.any(dim=1).all()):
+        return live.shape[1]
+    return int(live.any(dim=0).sum())
+
+
+def attention_work(B: int, Q: int, H: int, KV: int, dh: int, K: int,
+                   itemsize: int, live_pairs: int, keys: int
+                   ) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one call: q, the k and v of the ``keys`` the
+    function needs and the positions read once, the output written once;
+    4·dh operations (score and P·V) for every one of the ``live_pairs``
+    unmasked (query, key) pairs of every head."""
+    nbytes = itemsize * B * (2 * Q * H * dh + 2 * keys * KV * dh) \
+        + 4 * (Q + K)
+    return 4.0 * dh * H * B * live_pairs, float(nbytes)
+
+
+def _work(q, k, v, q_pos, k_pos, *, causal=True, window=None, softcap=None
+          ) -> Tuple[float, float]:
+    B, Q, H, dh = q.shape
+    live = live_mask(q_pos, k_pos, causal, window)
+    return attention_work(B, Q, H, k.shape[2], dh, k.shape[1],
+                          q.element_size(), int(live.sum()),
+                          needed_keys(live))
+
+
+@counted(_work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
@@ -217,3 +260,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{plan})")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_pos: torch.Tensor,
+                             k_pos: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`flash_attention` for the
+    output gradient ``do``, in float32 from q, k, v, the positions and the
+    forward's output ``o``: the scores are recomputed per kv group with
+    the forward's scale, softcap and mask (-1e30 fill), P = softmax, then
+
+        dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P ⊙ (dP − rowsum(dO ⊙ O)),
+
+    dS zeroed where masked (the fill is a constant), times the softcap's
+    1 − tanh², and dQ = dS·K/√dh, dK = dSᵀ·Q/√dh.  dK and dV sum a kv
+    group's query heads.  The (B, KV, g, Q, K) float32 tensors live only
+    inside this call.  Returns each gradient in its input's dtype."""
+    B, Q, H, dh = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.float().reshape(B, Q, KV, H // KV, dh)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) / math.sqrt(dh)
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    live = live_mask(q_pos, k_pos, causal, window)
+    p = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
+    del s
+    dog = do.float().reshape(qg.shape)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    rows = (dog * o.float().reshape(qg.shape)).sum(dim=-1)   # (B, Q, KV, g)
+    ds = p * (dp - rows.permute(0, 2, 3, 1)[..., None])
+    del p, dp
+    ds = torch.where(live, ds, 0.0)
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, Q, H, dh)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient for q, k and v:
+    ``FlashAttentionFunction.apply(q, k, v, q_pos, k_pos, causal, window,
+    softcap)``.  Saves the inputs and the output only: no (Q, K) tensor
+    outlives the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal: bool,
+                window: Optional[int], softcap: Optional[float]):
+        o = flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                            window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, o)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, q_pos, k_pos, o, do,
+                                              **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None

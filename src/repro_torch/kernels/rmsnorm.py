@@ -13,15 +13,21 @@ the kernel's path from the shapes and the pointers' alignment alone: a
 block per row with 16-byte loads of x and w issued together, or a scalar
 kernel for a d that is not a multiple of 16 bytes or an unaligned
 pointer.
+
+:class:`RmsnormFunction` is the differentiable call the model uses: its
+forward is :func:`rmsnorm` (the kernel on the card), its backward the
+plain PyTorch formulas of :func:`rmsnorm_backward` on both devices (the
+reference has no backward kernel: its training differentiates the jnp
+``models/layers.py::rms_norm``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, counted
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -113,6 +119,19 @@ def _kernel_fn(dtype: torch.dtype):
     return fn
 
 
+def rmsnorm_work(n: int, d: int, itemsize: int) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one call on (n, d) rows: x and w read once, y
+    written once; 4 float32 operations an element (square-add, scale,
+    1 + w, product)."""
+    return 4.0 * n * d, float((2 * n * d + d) * itemsize)
+
+
+def _work(x: torch.Tensor, w: torch.Tensor, eps: float
+          ) -> Tuple[float, float]:
+    return rmsnorm_work(x.shape[0], x.shape[1], x.element_size())
+
+
+@counted(_work)
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm of the rows of ``x``.
 
@@ -151,3 +170,38 @@ def _launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, eps: float,
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error "
                            f"{status} (N={n}, d={d}, {x.dtype}, {plan})")
     LAUNCHES["rmsnorm"] += 1
+
+
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                     eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The input gradients of ``y = x·r·(1 + w)``, r = rsqrt(mean(x²) +
+    eps), for the output gradient ``g`` (all (N, d) but w (d,)), in
+    float32 from x, w and the recomputed r:
+
+        dx = r·g(1 + w) − x·r³·mean(g(1 + w)·x)
+        dw = Σ_rows g·x·r
+
+    Returns (dx in x's dtype, dw in w's dtype)."""
+    xf, gw = x.float(), g.float() * (1.0 + w.float())
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    dx = r * gw - xf * r ** 3 * (gw * xf).mean(dim=-1, keepdim=True)
+    dw = (g.float() * xf * r).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class RmsnormFunction(torch.autograd.Function):
+    """:func:`rmsnorm` with a gradient: ``RmsnormFunction.apply(x, w,
+    eps)``.  Saves x and w only; r is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                eps: float) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_backward(x, w, g, ctx.eps)
+        return dx, dw, None

@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, counted
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # The reference's switch from its lax.scan to its chunked form
@@ -155,6 +155,24 @@ def _kernel_fn(dtype: torch.dtype):
     return fn
 
 
+def wkv6_work(B: int, T: int, H: int, dh: int, itemsize: int
+              ) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one call: r, k, v (``itemsize``), w (float32)
+    and u read once, the float32 state read and written once, the float32
+    output written once; 5·dh² float32 operations per (token, head): r·S
+    (2·dh²) and the state update w_i·S_ij + k_i·v_j (3·dh²); the bonus
+    term is O(dh)."""
+    n = B * T * H * dh
+    nbytes = 3 * itemsize * n + 4 * n + 4 * H * dh + 8 * B * H * dh * dh \
+        + 4 * n
+    return 5.0 * B * H * T * dh * dh, float(nbytes)
+
+
+def _work(r, k, v, w, u, S) -> Tuple[float, float]:
+    return wkv6_work(*r.shape, r.element_size())
+
+
+@counted(_work)
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     """The WKV-6 recurrence over T tokens from the state ``S``.

@@ -1,2 +1,3 @@
 """Launchers of the port: the serving launcher (``python -m
-repro_torch.launch.serve``)."""
+repro_torch.launch.serve``) and the training launcher (``python -m
+repro_torch.launch.train``)."""

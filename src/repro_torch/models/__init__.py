@@ -18,13 +18,16 @@ class ModelApi:
     """The reference's ``ModelApi`` on modules: ``init(seed)`` returns a
     :class:`transformer.Transformer` with seeded weights on the device;
     ``forward``/``decode_step`` take that module first where the
-    reference takes its parameter tree."""
+    reference takes its parameter tree, and ``loss_fn(model, params,
+    batch)`` takes it beside a dict of parameter tensors to differentiate
+    (None: the module's own)."""
 
     device: torch.device
     init: Callable
     forward: Callable
     init_decode_state: Callable
     decode_step: Callable
+    loss_fn: Callable
 
 
 def build(cfg: ModelConfig,
@@ -41,6 +44,8 @@ def build(cfg: ModelConfig,
             cfg, batch, max_len, device),
         decode_step=lambda model, state, tokens, pos: model.decode_step(
             state, tokens, pos),
+        loss_fn=lambda model, params, batch: transformer.loss_fn(
+            model, params, batch),
     )
 
 

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import flash_attention, rmsnorm
+from repro_torch.kernels import (FlashAttentionFunction, RmsnormFunction,
+                                 flash_attention, rmsnorm)
 
 # Position of a KV-cache slot that was never written: masked by the causal
 # test of every real query.
@@ -34,7 +35,15 @@ UNWRITTEN = 2 ** 30
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """x (..., d): the rows of x through the RMSNorm kernel."""
     d = x.shape[-1]
-    return rmsnorm(x.reshape(-1, d).contiguous(), w, eps).reshape(x.shape)
+    rows = x.reshape(-1, d).contiguous()
+    if _differentiable(x, w):
+        return RmsnormFunction.apply(rows, w, eps).reshape(x.shape)
+    return rmsnorm(rows, w, eps).reshape(x.shape)
+
+
+def _differentiable(*ts: torch.Tensor) -> bool:
+    """Does autograd need a graph through this call?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 # --------------------------------------------------------------------------
@@ -149,12 +158,15 @@ def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         cache["pos"][start:start + S] = positions.to(torch.int32)
         cache["idx"] += S
         k, v, k_pos = ck, cv, cache["pos"]
-    out = flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        positions.to(torch.int32).contiguous(),
-        k_pos.to(torch.int32).contiguous(),
-        causal=cfg.causal, window=cfg.window,
-        softcap=cfg.attn_logit_softcap)
+    args = (q.contiguous(), k.contiguous(), v.contiguous(),
+            positions.to(torch.int32).contiguous(),
+            k_pos.to(torch.int32).contiguous())
+    if _differentiable(*args[:3]):
+        out = FlashAttentionFunction.apply(*args, cfg.causal, cfg.window,
+                                           cfg.attn_logit_softcap)
+    else:
+        out = flash_attention(*args, causal=cfg.causal, window=cfg.window,
+                              softcap=cfg.attn_logit_softcap)
     H, dh, d = p["wo"].shape
     return out.reshape(*out.shape[:2], H * dh) @ p["wo"].reshape(H * dh, d)
 
@@ -195,3 +207,19 @@ def logits_from(table: torch.Tensor, head: Optional[torch.Tensor],
     if cfg.tie_embeddings:
         return (x @ table.T).float()
     return (x @ head).float()
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token negative log-likelihood, masked where ``mask`` is
+    given (the reference's ``cross_entropy``)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

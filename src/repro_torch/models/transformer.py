@@ -7,6 +7,11 @@ The reference stacks its layers (leading L dimension) and drives them with
 The other families raise ``NotImplementedError`` naming the ROADMAP.md
 queue that brings them.
 
+Training differentiates with respect to a dict of leaf tensors keyed as
+the module's state dict: :func:`functional_call` runs the module on them
+(``torch.func.functional_call``), and :func:`loss_fn` /
+:func:`chunked_ce_from_hidden` are the reference's loss paths.
+
 Decode state is a list of per-layer states that :meth:`decode_step`
 updates in place (the reference returns a new state instead): ring-buffer
 KV caches (:func:`layers.init_attention_cache`) for the dense family, the
@@ -23,8 +28,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 from . import rwkv
-from .layers import (attention, embed, init_attention_cache, logits_from,
-                     mlp, rms_norm, rope_angles, rope_dim)
+from .layers import (attention, cross_entropy, embed, init_attention_cache,
+                     logits_from, mlp, rms_norm, rope_angles, rope_dim)
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -162,10 +167,13 @@ class Transformer(nn.Module):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return logits_from(self.embed, self.head, self.cfg, x)
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens (B, S) -> (logits (B, S, V) float32, info)."""
+        """tokens (B, S) -> (logits (B, S, V) float32, info);
+        ``return_hidden`` skips the head and returns the final-normed
+        hidden states (B, S, d) (the chunked-CE path).  Records a graph
+        only where a parameter needs a gradient (:func:`loss_fn` calls it
+        with a dict of leaf tensors)."""
         x = embed(self.embed, self.cfg, tokens)
         if self.recurrent:  # every layer from a zero state
             for block in self.blocks:
@@ -177,6 +185,8 @@ class Transformer(nn.Module):
             for block in self.blocks:
                 x = block(x, positions, angles)
         info = {"aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+        if return_hidden:
+            return rms_norm(x, self.final_norm, self.cfg.norm_eps), info
         return self._head(x), info
 
     def init_decode_state(self, batch: int,
@@ -232,3 +242,72 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     return {"layers": [init_attention_cache(cfg, batch, max_len, dtype,
                                             device)
                        for _ in range(cfg.n_layers)]}
+
+
+# --------------------------------------------------------------------------
+# loss (training)
+# --------------------------------------------------------------------------
+Params = Dict[str, torch.Tensor]
+
+
+def functional_call(model: Transformer, params: Optional[Params],
+                    tokens: torch.Tensor, return_hidden: bool = False
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``model(tokens)`` with its parameters replaced by ``params`` (a dict
+    keyed as ``model.state_dict()``; None: the module's own)."""
+    if params is None:
+        return model(tokens, return_hidden=return_hidden)
+    return torch.func.functional_call(
+        model, params, (tokens,), {"return_hidden": return_hidden},
+        strict=True)
+
+
+def chunked_ce_from_hidden(params: Params, cfg: ModelConfig,
+                           x: torch.Tensor, labels: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy computed seq-chunk by seq-chunk from the hidden
+    states ``x`` (B, S, d), with the head of ``params`` (``embed``, and
+    ``head`` when the embeddings are not tied): each chunk's float32
+    logits are formed, reduced and dropped in turn (autograd keeps what
+    the backward needs of each)."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    denom = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, S, chunk):
+        logits = logits_from(params["embed"], params.get("head"), cfg,
+                             x[:, a:a + chunk])
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels[:, a:a + chunk, None].long())[..., 0]
+        mc = mask[:, a:a + chunk]
+        tot = tot + ((lse - ll) * mc).sum()
+        denom = denom + mc.sum()
+    return tot / torch.clamp(denom, min=1.0)
+
+
+def loss_fn(model: Transformer, params: Optional[Params],
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``loss_fn`` for the dense and ssm families:
+    next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``) under ``params`` (None: the module's own).  Above
+    ``S·vocab = 2**26`` the loss comes chunked from the hidden states, as
+    in the reference.  Returns ``(total, {"loss", "aux"})``."""
+    cfg = model.cfg
+    labels, mask = batch["labels"], batch.get("mask")
+    tokens = batch["tokens"]
+    if tokens.shape[1] * cfg.vocab > 2 ** 26:
+        x, info = functional_call(model, params, tokens, return_hidden=True)
+        head = dict(model.named_parameters()) if params is None else params
+        loss = chunked_ce_from_hidden(
+            head, cfg, x[:, :-1], labels[:, 1:],
+            mask[:, 1:] if mask is not None else None)
+    else:
+        logits, info = functional_call(model, params, tokens)
+        loss = cross_entropy(logits[:, :-1], labels[:, 1:],
+                             mask[:, 1:] if mask is not None else None)
+    return loss + info["aux"], {"loss": loss, **info}

@@ -2,15 +2,13 @@
 *itself*.
 
 The PyTorch port of the reference's ``repro/scenarios/chaos.py``: the
-spool and fleet archetypes, their collectors, :class:`ChaosTruth` and
-:class:`ChaosOutcome`.  The checkpoint archetype waits for the port of
-training's checkpoint writer; this module imports no checkpoint code
-(``ChaosTruth`` keeps its checkpoint fields so it matches the reference
-field for field).
+spool, checkpoint and fleet archetypes, their collectors,
+:class:`ChaosTruth` and :class:`ChaosOutcome`.
 
 ``faults.py`` injects performance faults into the programs we analyze;
 this module injects **infrastructure** faults into the analysis pipeline
-— the spool writer, the live consumer, the fleet's tenants — and the
+— the spool writer, the checkpoint writer, the live consumer, the
+fleet's tenants — and the
 chaos corpus backends (``scenarios/corpus.py``, backends ``chaos`` and
 ``fleet``) score whether the robustness machinery holds its contract:
 
@@ -35,6 +33,8 @@ Archetypes
                            (consumer must detect the stall, then recover)
 ``TruncateSegment``        a flushed segment loses its tail on disk
 ``FlipBytesInSegment``     silent bit rot inside a flushed segment
+``CorruptLatestCheckpoint``the newest checkpoint's payload is damaged
+                           (restore must fall back to a verified step)
 
 Fleet archetypes (``repro_torch.fleet``, corpus backend ``fleet``) —
 the fault lands on one (or two) of many concurrent runs and the contract
@@ -67,6 +67,7 @@ from repro_torch.core.trace import RegionTrace
 from repro_torch.fleet import FleetConfig, FleetIngest, VerdictIndex
 from repro_torch.stream import (OnlineAnalyzer, ProducerStalledError,
                                 SpooledTrace, TraceSpool)
+from repro_torch.train import checkpoint as ckpt_mod
 
 # -- archetypes -----------------------------------------------------------
 
@@ -107,6 +108,15 @@ class FlipBytesInSegment:
 
     segment: int = 1
     n_flips: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class CorruptLatestCheckpoint:
+    """``n_flips`` bytes of the newest checkpoint's ``params.npz`` are
+    inverted at seeded offsets; restore must fall back to the newest
+    *verified* step and report the skip."""
+
+    n_flips: int = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,7 +286,7 @@ def _corrupt_file(path: str, archetype, rng: np.random.Generator) -> None:
         keep = max(1, int(size * rng.uniform(0.2, 0.8)))
         with open(path, "rb+") as f:
             f.truncate(keep)
-    else:   # FlipBytesInSegment
+    else:   # FlipBytesInSegment / CorruptLatestCheckpoint
         offsets = rng.choice(size, size=min(archetype.n_flips, size),
                              replace=False)
         with open(path, "rb+") as f:
@@ -602,3 +612,71 @@ class FleetChaosCollector:
                             set(range(self.n_runs)) - victims),
                         "ticks": fleet.ticks,
                         "decisions": _decisions(onlines)})
+
+
+# -- checkpoint pipeline --------------------------------------------------
+
+
+class CheckpointChaosCollector:
+    """Corrupt-latest-checkpoint archetype: ``n_saves`` deterministic
+    checkpoints, seeded damage to the newest, then a verified restore that
+    must fall back one step and reproduce that step's arrays bit-exactly.
+    The "window comparison" here is the restored state itself: 1/1 when
+    the fallback state equals what was saved, 0/1 otherwise."""
+
+    def __init__(self, archetype: CorruptLatestCheckpoint, seed: int,
+                 n_saves: int = 3):
+        self.archetype = archetype
+        self.seed = seed
+        self.n_saves = n_saves
+
+    def _trees(self, step: int) -> Dict[str, Any]:
+        rng = np.random.default_rng(self.seed * 7919 + step)
+        f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)
+        return {"params": {"w": f32(8, 8), "b": f32(8)},
+                "opt_state": {"m": f32(8, 8)}}
+
+    def run_chaos(self) -> ChaosOutcome:
+        with tempfile.TemporaryDirectory(prefix="repro-chaos-ckpt-") as d:
+            try:
+                for step in range(1, self.n_saves + 1):
+                    ckpt_mod.save(d, step, self._trees(step))
+                latest = ckpt_mod.latest_step(d)
+                rng = np.random.default_rng(self.seed * 9173 + 29)
+                _corrupt_file(os.path.join(d, f"step_{latest:010d}",
+                                           "params.npz"),
+                              self.archetype, rng)
+                # detection: the damaged step must fail verification ...
+                reason = ckpt_mod.verify_step(d, latest)
+                verified, skipped = ckpt_mod.latest_verified_step(d)
+                # ... and a default restore must land on the fallback
+                templates = self._trees(1)
+                import warnings
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    step, out = ckpt_mod.restore(d, templates)
+                want = self._trees(step)
+                exact = all(
+                    np.array_equal(np.asarray(a), np.asarray(b))
+                    for tree in ("params", "opt_state")
+                    for a, b in zip(
+                        _leaves(out[tree]), _leaves(want[tree])))
+            except Exception as e:
+                return ChaosOutcome(survived=False,
+                                    error=f"{type(e).__name__}: {e}")
+        return ChaosOutcome(
+            survived=True, verdict=EMPTY_VERDICT,
+            quarantined=len(skipped),   # steps skipped by verification
+            matched=int(exact), comparable=1,
+            mismatched=[] if exact else [step],
+            fallback_from=latest, restored_step=step,
+            detail={"corrupt_reason": reason, "skipped": skipped,
+                    "verified_step": verified})
+
+
+def _leaves(tree: Any) -> List[Any]:
+    """The leaves of nested dicts in sorted key order (the order
+    ``jax.tree_util.tree_leaves`` walks them in)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]

@@ -16,9 +16,10 @@ as real instrumentation would observe it.
 
 The PyTorch port's copy of the reference's ``repro/scenarios/faults.py``
 (numpy only): the snapshot and step-aware archetypes through
-:class:`ThermalThrottleDrift`, and the runtime backend's
-:func:`iterated_work`, whose iteration count runs as a host loop.  The
-serving archetypes are not ported yet (ROADMAP.md queue 1, item 3).
+:class:`ThermalThrottleDrift`, the serving archetypes
+:class:`KVCacheThrash` through :class:`LongTailPromptStraggler`, and the
+runtime backend's :func:`iterated_work`, whose iteration count runs as a
+host loop.
 """
 from __future__ import annotations
 
@@ -460,6 +461,193 @@ class ThermalThrottleDrift:
                 M[:, :, j] += deltas
                 for c in anc:
                     M[:, :, c] += deltas
+
+    @property
+    def paths(self) -> Tuple[str, ...]:
+        return (self.region,)
+
+
+# -- serving archetypes ----------------------------------------------------
+# Trace-level (apply_trace) and *schedule-conditioned*: each one triggers
+# off signals the serving engine recorded (KV occupancy, co-scheduled
+# prefill, routing skew, per-chunk prefill cost) rather than off fixed
+# step/process lists, so the perturbation lands exactly where the traffic
+# pattern creates the exposure — rng-free, hence bit-reproducible and safe
+# to apply per step through the engine's step hook (a live spool tail sees
+# the same samples the post-hoc injection produces).  docs/serving.md.
+
+def _scale_trace_cells(tree: RegionTree, trace: RegionTrace, rid: int,
+                       metric: str, factors: np.ndarray) -> None:
+    """Trace-wide :func:`_scale_cells`: ``factors`` is (S, R, m); ancestor
+    columns receive the additive delta (inclusive timing, per step)."""
+    j = trace.col(rid)
+    M = trace.metric(metric)
+    deltas = M[:, :, :, j] * (factors - 1.0)
+    M[:, :, :, j] += deltas
+    for c in _ancestor_cols(tree, trace, rid):
+        M[:, :, :, c] += deltas
+
+
+def _add_trace_cells(tree: RegionTree, trace: RegionTrace, rid: int,
+                     metric: str, deltas: np.ndarray) -> None:
+    j = trace.col(rid)
+    M = trace.metric(metric)
+    M[:, :, :, j] += deltas
+    for c in _ancestor_cols(tree, trace, rid):
+        M[:, :, :, c] += deltas
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheThrash:
+    """KV-cache thrash: once a lane's cache occupancy crosses
+    ``occupancy_frac``, its KV traffic stops fitting fast memory — every
+    append re-streams cache lines through HBM.  Wall and CPU time in the
+    KV region scale by ``slowdown`` and its bytes/intensity by
+    ``byte_factor`` on exactly the (step, lane) cells whose *recorded*
+    occupancy (VMEM_PRESSURE at ``region``) exceeds the threshold, from
+    ``onset_step`` on.  Same tokens appended — FLOPS untouched — so the
+    surfaced cause is the memory system (HBM_INTENSITY), the paper's
+    memory-bound disparity shape.  All lanes saturate together under
+    corpus traffic, so this is a code-region disparity, not a lane
+    dissimilarity."""
+
+    region: str = "serve/kv_append"
+    occupancy_frac: float = 0.5
+    slowdown: float = 5.0
+    byte_factor: float = 10.0
+    onset_step: int = 0
+    kind: ClassVar[str] = DISPARITY
+    causes: ClassVar[FrozenSet[str]] = frozenset({HBM_INTENSITY})
+
+    def apply_trace(self, tree: RegionTree, trace: RegionTrace,
+                    rng: np.random.Generator) -> None:
+        rid = tree.by_path(self.region).region_id
+        j = trace.col(rid)
+        occ = trace.metric(VMEM_PRESSURE)[:, :, :, j]
+        mask = occ > self.occupancy_frac               # (S, R, m)
+        if self.onset_step:
+            mask = mask.copy()
+            mask[:self.onset_step] = False
+        time_f = np.where(mask, self.slowdown, 1.0)
+        byte_f = np.where(mask, self.byte_factor, 1.0)
+        for metric in (WALL_TIME, CPU_TIME):
+            _scale_trace_cells(tree, trace, rid, metric, time_f)
+        _scale_trace_cells(tree, trace, rid, BYTES, byte_f)
+        # Intensity is a rate, not an inclusive quantity: no ancestors.
+        H = trace.metric(HBM_INTENSITY)
+        H[:, :, :, j] *= byte_f
+
+    @property
+    def paths(self) -> Tuple[str, ...]:
+        return (self.region,)
+
+
+@dataclasses.dataclass(frozen=True)
+class InterleaveImbalance:
+    """Prefill/decode interleave imbalance: an unfair batcher lets
+    co-scheduled prefill chunks starve one lane's decode — the victim
+    lane's decode cells gain ``stall`` seconds of pure wall on exactly
+    the steps where *any other* lane is prefilling (read off the
+    recorded prefill activity).  Pure waiting: CPU time and every
+    quantity metric untouched, so (like the wait-style archetypes) the
+    cause set is empty and the analyzer needs
+    ``similarity_metric=WALL_TIME`` to see it — one slow *lane*, a
+    process dissimilarity."""
+
+    victim: int
+    stall: float = 0.03
+    prefill_region: str = "serve/prefill"
+    decode_region: str = "serve/decode"
+    kind: ClassVar[str] = DISSIMILARITY
+    causes: ClassVar[FrozenSet[str]] = frozenset()
+
+    def apply_trace(self, tree: RegionTree, trace: RegionTrace,
+                    rng: np.random.Generator) -> None:
+        jp = trace.col(tree.by_path(self.prefill_region).region_id)
+        rid = tree.by_path(self.decode_region).region_id
+        jd = trace.col(rid)
+        wall = trace.metric(WALL_TIME)
+        others = wall[:, :, :, jp].copy()              # (S, R, m)
+        others[:, :, self.victim] = 0.0
+        contended = others.sum(axis=2) > 0             # (S, R)
+        victim_decoding = wall[:, :, self.victim, jd] > 0
+        deltas = np.zeros(wall.shape[:3])
+        deltas[:, :, self.victim] = self.stall * (contended
+                                                  & victim_decoding)
+        _add_trace_cells(tree, trace, rid, WALL_TIME, deltas)
+
+    @property
+    def paths(self) -> Tuple[str, ...]:
+        return (self.decode_region,)
+
+
+@dataclasses.dataclass(frozen=True)
+class HotExpertRouting:
+    """Hot-expert routing under a skewed request mix: when hot-prompt
+    repetition concentrates routing mass on one expert, that expert's
+    queue congests — its cells' wall and CPU time scale by
+    ``congestion`` on exactly the cells where its recorded FLOPS exceed
+    all sibling experts' combined (i.e. the mix actually skewed; a
+    balanced mix makes this archetype a no-op, queueing only exists once
+    routing does).  The inflated FLOPS themselves are *emergent from the
+    traffic*, so the verdict's cause is FLOPS at the hot expert — a
+    code-region disparity localized to one ``expert_e`` child."""
+
+    layer: str = "serve/moe"
+    hot_expert: int = 0
+    congestion: float = 3.0
+    kind: ClassVar[str] = DISPARITY
+    causes: ClassVar[FrozenSet[str]] = frozenset({FLOPS})
+
+    def apply_trace(self, tree: RegionTree, trace: RegionTrace,
+                    rng: np.random.Generator) -> None:
+        node = tree.by_path(self.layer)
+        experts = [c for c in node.children
+                   if c.name.startswith("expert_")]
+        hot = tree.by_path(f"{self.layer}/expert_{self.hot_expert}")
+        fl = trace.metric(FLOPS)
+        jh = trace.col(hot.region_id)
+        hot_f = fl[:, :, :, jh]
+        sib = np.zeros_like(hot_f)
+        for c in experts:
+            if c.region_id != hot.region_id:
+                sib += fl[:, :, :, trace.col(c.region_id)]
+        factors = np.where(hot_f > sib, self.congestion, 1.0)
+        for metric in (WALL_TIME, CPU_TIME):
+            _scale_trace_cells(tree, trace, hot.region_id, metric, factors)
+
+    @property
+    def paths(self) -> Tuple[str, ...]:
+        return (f"{self.layer}/expert_{self.hot_expert}",)
+
+
+@dataclasses.dataclass(frozen=True)
+class LongTailPromptStraggler:
+    """Long-tail prompt straggler: the quadratic attention term makes a
+    very long prompt's later prefill chunks disproportionately
+    expensive, and past ``min_wall`` per chunk the lane falls off the
+    fast path (cache working set blown) — every work metric in those
+    cells scales by ``factor``.  Conditioned on the *recorded* per-chunk
+    prefill wall, so under a mixed traffic only the tail lane's deep
+    chunks trigger; with decode/KV/sample token rates balanced across
+    lanes (the corpus traffic arranges this), the verdict is one
+    dissimilar lane whose extra work (FLOPS) sits in prefill."""
+
+    region: str = "serve/prefill"
+    min_wall: float = 0.015
+    factor: float = 4.0
+    kind: ClassVar[str] = DISSIMILARITY
+    causes: ClassVar[FrozenSet[str]] = frozenset({FLOPS})
+
+    def apply_trace(self, tree: RegionTree, trace: RegionTrace,
+                    rng: np.random.Generator) -> None:
+        rid = tree.by_path(self.region).region_id
+        j = trace.col(rid)
+        factors = np.where(
+            trace.metric(WALL_TIME)[:, :, :, j] > self.min_wall,
+            self.factor, 1.0)
+        for metric in _WORK_METRICS:
+            _scale_trace_cells(tree, trace, rid, metric, factors)
 
     @property
     def paths(self) -> Tuple[str, ...]:

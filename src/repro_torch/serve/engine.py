@@ -32,8 +32,8 @@ Backends (same ``tree`` / ``region_ids`` / ``warmup()`` /
 * ``repro_torch.serve.runtime.TorchBackend`` — the real model on the card
   with measured walls / CPU time and analytic flops and bytes; what
   ``repro_torch.launch.serve`` runs.
-* The reference's deterministic ``CostModelBackend`` (serve/cost.py) is
-  not ported yet (ROADMAP.md queue 1, item 3).
+* ``repro_torch.serve.cost.CostModelBackend`` — deterministic analytic
+  samples; what the serving corpus entries and tests run.
 
 Spooling and finalization mirror the reference exactly: identical meta key
 order on the in-memory and spooled paths, so a finalized spool is

@@ -1028,12 +1028,13 @@ CHAOS = [e.name for e in corpus_entries(backend="chaos")]
 
 class TestChaosCorpus:
     def test_registry_has_the_spool_archetypes(self):
-        """The reference's six chaos entries but the checkpoint one, which
-        waits for the port of training's checkpoint writer."""
+        """The reference's six chaos entries: the five spool archetypes
+        and, with training's checkpoint writer, the checkpoint one."""
         from repro.scenarios.corpus import corpus_entries as ref_entries
         ref = {e.name for e in ref_entries(backend="chaos")}
-        assert set(CHAOS) == ref - {"chaos/corrupt-latest-checkpoint"}
-        assert len(CHAOS) == 5
+        assert set(CHAOS) == ref
+        assert "chaos/corrupt-latest-checkpoint" in CHAOS
+        assert len(CHAOS) == 6
 
     def test_chaos_outcome_deterministic(self):
         name = "chaos/kill-producer-torn-segment"
