@@ -96,6 +96,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``torch.autograd.grad`` through the plain versions on the card; times
    of the forward, the backward formulas, the plain forward+backward and
    ``F.rms_norm`` / ``F.scaled_dot_product_attention`` forward+backward;
+   attention's forward also as device time per call beside SDPA's;
 16. training parity: st-100m's full width cut to 2 layers, float32,
    seeded weights on the host and a copy on the card; one step's loss
    within 1e-5 relative and every gradient within 1e-4 of its scale, then
@@ -181,7 +182,7 @@ ENTRY_SYMBOLS = {
     "rmsnorm": ("rmsnorm_row_kernel", "rmsnorm_kernel"),
     "flash_attention": ("flash_attention_split_kernel",
                         "flash_attention_wgmma_kernel",
-                        "flash_attention_kernel"),
+                        "flash_attention_simt_kernel"),
     "wkv6": ("wkv6_decode_kernel", "wkv6_kernel")}
 # The entry kernel each decode call of the served models must run: one
 # token per call is the row-per-block RMSNorm and the decode WKV-6.
@@ -1959,12 +1960,13 @@ def attention_plan_of_shape(c: dict):
 
 
 def time_train_attention(name: str) -> dict:
-    """float32 on the card: the kernel forward, the backward formulas, the
-    plain version's forward and its forward and backward, and
-    ``F.scaled_dot_product_attention`` over k/v repeated to the query
-    heads (causal, or a boolean window mask), forward and forward and
-    backward (None where the case has a softcap, which SDPA does not
-    compute); the forward's bound."""
+    """float32 on the card: the kernel forward (CUDA events over
+    back-to-back calls, and device time per call from the profiler), the
+    backward formulas, the plain version's forward and its forward and
+    backward, and ``F.scaled_dot_product_attention`` over k/v repeated to
+    the query heads (causal, or a boolean window mask), forward (CUDA
+    events and device time) and forward and backward (None where the case
+    has a softcap, which SDPA does not compute); the forward's bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
@@ -1978,14 +1980,17 @@ def time_train_attention(name: str) -> dict:
         c["B"], c["S"], c["H"], c["KV"], c["dh"], c["S"], 4,
         int(live.sum()), FA.needed_keys(live))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+
+    def kernel():
+        return K.flash_attention(q, k, v, pos, pos, **opts)
     res = {
-        "ms": cuda_ms(lambda: K.flash_attention(q, k, v, pos, pos, **opts),
-                      50),
+        "ms": cuda_ms(kernel, 50),
+        "device_ms": device_ms(kernel, "flash_attention", 50),
         "backward_ms": cuda_ms(lambda: K.flash_attention_backward(
             q, k, v, pos, pos, o, g, **opts), 20),
         "plain_ms": cuda_ms(lambda: K.flash_attention_ref(
             q, k, v, pos, pos, **opts), 20),
-        "library_ms": None,
+        "library_ms": None, "library_device_ms": None,
         "plain_fwd_bwd_ms": _fwd_bwd_ms(
             lambda a, b, d: K.flash_attention_ref(a, b, d, pos, pos, **opts),
             (q, k, v), g, 10),
@@ -2001,8 +2006,11 @@ def time_train_attention(name: str) -> dict:
         gh = g.transpose(1, 2)
         kw = ({"is_causal": True} if c["window"] is None
               else {"attn_mask": live})
-        res["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(*heads, **kw), 20)
+
+        def library():
+            return F.scaled_dot_product_attention(*heads, **kw)
+        res["library_ms"] = cuda_ms(library, 20)
+        res["library_device_ms"] = library_device_ms(library)
         res["library_fwd_bwd_ms"] = _fwd_bwd_ms(
             lambda a, b, d: F.scaled_dot_product_attention(a, b, d, **kw),
             heads, gh, 20)
@@ -2559,13 +2567,15 @@ def main() -> int:
         tr_attn[name] = r = {**check_train_attention(name, "cuda"),
                              **time_train_attention(name)}
         lib = ("none (softcap)" if r["library_ms"] is None else
-               f"{r['library_ms']:.6f} ms, forward+backward "
+               f"{r['library_ms']:.6f} ms (device "
+               f"{r['library_device_ms']:.6f} ms), forward+backward "
                f"{r['library_fwd_bwd_ms']:.6f} ms")
         log(f"[15] attention {name} {case} f32 with gradients, path "
             f"{r['plan']}: max error over scale output {r['fwd']:.3g} "
             f"(tolerance {F32_TOL}), dq {r['dq']:.3g}, dk {r['dk']:.3g}, "
             f"dv {r['dv']:.3g} (tolerance {GRAD_TOL}); kernel forward "
-            f"{r['ms']:.6f} ms, backward formulas {r['backward_ms']:.6f} "
+            f"{r['ms']:.6f} ms (device {r['device_ms']} ms), backward "
+            f"formulas {r['backward_ms']:.6f} "
             f"ms, plain forward {r['plain_ms']:.6f} ms, forward+backward "
             f"{r['plain_fwd_bwd_ms']:.6f} ms, SDPA forward {lib}, "
             f"forward bound {r['bound_ms']:.6f} ms ({r['bound_by']})")

@@ -74,10 +74,30 @@
 //    tiles are walked as well, so that row averages v over all K keys.
 //    Keys past K (a ragged last tile) are zero-filled and scored -inf:
 //    weight 0, never among the -1e30 keys.
-//  * simt (float32 with rows > 8, or an unaligned bf16 call): the
-//    CUDA-core kernel, a block of 8 warps per (b, h) and up to 8 queries,
-//    float32 tiles in shared memory.  TF32 stays off, so float32 has no
-//    tensor-core path.
+//  * simt (float32 with rows > 8, and the bf16 calls wgmma refuses: dh %
+//    8 != 0 or unaligned pointers): register-tiled CUDA-core tiles in IEEE
+//    float32 FMAs (TF32 stays off, so float32 has no tensor-core path).
+//    Bound at st-100m's training call (B 2, S 1024, H 12, dh 64, causal):
+//    3.22 GFLOP of live pairs, 0.048 ms at 67 TFLOP/s, by operations.  A
+//    block of 256 threads owns 64 packed query rows of one kv head, as
+//    wgmma does; the grid's row tiles run in reverse, so causal blocks with
+//    the most live keys start first.  The Q tile stays in shared memory;
+//    K and V come in tiles of BN keys (64; 32 where dh pads to 128 or 256),
+//    staged once per block per tile (16-byte cp.async for aligned float32
+//    rows of a multiple of 4, converting loads otherwise), double-buffered
+//    so that tile t + 1 loads while tile t computes; rows padded by 16 bytes
+//    so that the warps' reads have no bank conflicts.  Each thread holds 4
+//    rows x BN / 16 keys of S = Q.K^T and 4 rows x DHP / 16 columns of O,
+//    and computes both as SGEMM-style outer products of 16-byte words
+//    (each K or V word serves 4 rows, each Q word BN / 16 keys and each P
+//    word DHP / 16 columns); no shuffle per score.  The online softmax
+//    (exp2 of log2e-scaled scores) stays in registers; a row's maximum
+//    reduces over the 16 threads that share it; P goes to shared memory
+//    (transposed) for the P.V products, the rescale staying in the threads
+//    that own the rows.  Key tiles are skipped by position with the wgmma
+//    path's rule (live tiles first, dead tiles only for a block holding a
+//    row without a live key, "full" tiles unmasked); a masked key of a row
+//    that already holds a live score weighs 0 without an exp.
 //
 // Plain C interface for ctypes; each launch function returns
 // cudaGetLastError() so that a refused launch is reported.
@@ -113,141 +133,6 @@ __device__ __forceinline__ bool live_key(int kp, int qp, int causal,
   if (causal) live = kp <= qp;
   if (window > 0) live = live && kp > qp - window;
   return live;
-}
-
-// ---------------------------------------------------------------------------
-// simt: the CUDA-core kernel (float32 above the split path's rows, and
-// bf16 calls the mma path cannot take)
-// ---------------------------------------------------------------------------
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int NI = DH_MAX / 32;  // head-vector elements per lane
-constexpr int KT = 16;           // keys staged per tile
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const int32_t* __restrict__ q_pos,
-                       const int32_t* __restrict__ k_pos,
-                       T* __restrict__ out, int Q, int H, int K, int KV,
-                       int dh, int causal, int window, float softcap,
-                       float scale, int ksplit) {
-  __shared__ float Ks[KT][DH_MAX];
-  __shared__ float Vs[KT][DH_MAX];
-  __shared__ int Ps[KT];
-  __shared__ float Ms[WARPS];
-  __shared__ float Ls[WARPS];
-  __shared__ float Acc[WARPS][DH_MAX];
-
-  const int qpb = WARPS / ksplit;  // queries per block
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y - b * H;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * qpb + warp / ksplit;
-  const int split = warp - (warp / ksplit) * ksplit;
-  const bool active = qi < Q;  // the same for the whole warp
-
-  float qv[NI];
-  float acc[NI];
-  int qp = 0;
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    qv[i] = 0.0f;
-    acc[i] = 0.0f;
-  }
-  if (active) {
-    const T* qrow = q + ((static_cast<size_t>(b) * Q + qi) * H + h) * dh;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int d = lane + 32 * i;
-      if (d < dh) qv[i] = to_f(qrow[d]);
-    }
-    qp = q_pos[qi];
-  }
-  float m = -INFINITY;
-  float l = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    const int kt = min(KT, K - k0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = threadIdx.x; e < kt * dh; e += THREADS) {
-      const int j = e / dh;
-      const int d = e - j * dh;
-      const size_t off =
-          ((static_cast<size_t>(b) * K + k0 + j) * KV + kvh) * dh + d;
-      Ks[j][d] = to_f(k[off]);
-      Vs[j][d] = to_f(v[off]);
-    }
-    if (threadIdx.x < kt) Ps[threadIdx.x] = k_pos[k0 + threadIdx.x];
-    __syncthreads();
-    if (!active) continue;
-    for (int j = split; j < kt; j += ksplit) {
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int d = lane + 32 * i;
-        if (d < dh) part = fmaf(qv[i], Ks[j][d], part);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        part += __shfl_xor_sync(FULL, part, off);
-      }
-      float s = part * scale;
-      if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
-      if (!live_key(Ps[j], qp, causal, window)) s = MASKED;
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);  // 0 while m is -inf
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int d = lane + 32 * i;
-        if (d < dh) acc[i] = fmaf(p, Vs[j][d], acc[i] * alpha);
-      }
-      m = m_new;
-    }
-  }
-
-  // Merge the partial softmaxes of each query's warps.
-  if (lane == 0) {
-    Ms[warp] = m;
-    Ls[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int d = lane + 32 * i;
-    if (d < dh) Acc[warp][d] = acc[i];
-  }
-  __syncthreads();
-  if (!active || split != 0) return;
-  float M = -INFINITY;
-  for (int s = 0; s < ksplit; ++s) M = fmaxf(M, Ms[warp + s]);
-  float L = 0.0f;
-  float o[NI];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) o[i] = 0.0f;
-  for (int s = 0; s < ksplit; ++s) {
-    const float ms = Ms[warp + s];
-    // A warp that saw no key (K < ksplit) holds m = -inf, l = 0, acc = 0.
-    const float c = ms == -INFINITY ? 0.0f : expf(ms - M);
-    L += Ls[warp + s] * c;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int d = lane + 32 * i;
-      if (d < dh) o[i] = fmaf(Acc[warp + s][d], c, o[i]);
-    }
-  }
-  L = fmaxf(L, 1e-30f);
-  T* orow = out + ((static_cast<size_t>(b) * Q + qi) * H + h) * dh;
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int d = lane + 32 * i;
-    if (d < dh) orow[d] = from_f<T>(o[i] / L);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -910,6 +795,79 @@ __device__ __forceinline__ uint64_t gdesc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The block's query positions (Qp[r] for its BM packed rows, 0 past
+// Q * g) and their range over its valid rows, in every warp.
+__device__ __forceinline__ void block_positions(const int32_t* q_pos,
+                                                int* Qp, int r0, int rows,
+                                                int g, int tid, int& qmin,
+                                                int& qmax) {
+  const int lane = tid & 31;
+  qmin = INT_MAX;
+  qmax = INT_MIN;
+  for (int r = lane; r < BM; r += 32) {
+    const int R = r0 + r;
+    const int p = R < rows ? q_pos[R / g] : 0;
+    if (tid < 32) Qp[r] = p;
+    if (R < rows) {
+      qmin = min(qmin, p);
+      qmax = max(qmax, p);
+    }
+  }
+  qmin = __reduce_min_sync(FULL, qmin);
+  qmax = __reduce_max_sync(FULL, qmax);
+}
+
+// Tile liveness from each tile's (min, max) k_pos: ``live`` unless every
+// key follows every query (causal) or precedes every window; ``full`` when
+// no key of the tile is masked for any row of the block (and none lies
+// past K).  Bits of the first MAXT tiles of BN keys; ``pos_vec``: k_pos is
+// 16-byte aligned.  All ``nth`` threads of the block take part.
+template <int BN>
+__device__ __forceinline__ void mark_tiles(const int32_t* __restrict__ k_pos,
+                                           int K, int n_tiles, int qmin,
+                                           int qmax, int causal, int window,
+                                           bool pos_vec, unsigned* live,
+                                           unsigned* full, int tid, int nth) {
+  const int lane = tid & 31;
+  const int n_bits = min(n_tiles, MAXT);
+  for (int t0 = 0; t0 < n_bits; t0 += nth) {
+    const int tt = t0 + tid;
+    bool lv = false, fl = false;
+    if (tt < n_bits) {
+      int kmin = INT_MAX, kmax = INT_MIN;
+      const int j0 = tt * BN;
+      if (pos_vec && j0 + BN <= K) {
+        const int4* p4 = reinterpret_cast<const int4*>(k_pos + j0);
+#pragma unroll
+        for (int e = 0; e < BN / 4; ++e) {
+          const int4 x = p4[e];
+          kmin = min(kmin, min(min(x.x, x.y), min(x.z, x.w)));
+          kmax = max(kmax, max(max(x.x, x.y), max(x.z, x.w)));
+        }
+      } else {
+        for (int j = j0; j < min(K, j0 + BN); ++j) {
+          kmin = min(kmin, k_pos[j]);
+          kmax = max(kmax, k_pos[j]);
+        }
+      }
+      const long long lo = kmin, hi = kmax;
+      const bool dead =
+          (causal && lo > qmax) ||
+          (window > 0 && hi <= static_cast<long long>(qmin) - window);
+      lv = !dead;
+      fl = j0 + BN <= K && (!causal || hi <= qmin) &&
+           (window <= 0 || lo > static_cast<long long>(qmax) - window);
+    }
+    const unsigned wl = __ballot_sync(FULL, lv);
+    const unsigned wf = __ballot_sync(FULL, fl);
+    const int word = (t0 >> 5) + (tid >> 5);
+    if (lane == 0 && word < MAXT / 32) {
+      live[word] = wl;
+      full[word] = wf;
+    }
+  }
+}
+
 // Q tile, the key groups' double-buffered K/V rings and their positions,
 // the two liveness bitmasks, the rows' positions and per-group row maxima,
 // and 1 KB of slack to align the tiles to 1 KB.
@@ -1018,60 +976,12 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
   }
   cp_async_commit();
 
-  // 2. The block's query positions and their range (valid rows only).
-  int qmin = INT_MAX, qmax = INT_MIN;
-  for (int r = lane; r < BM; r += 32) {
-    const int R = r0 + r;
-    const int p = R < rows ? q_pos[R / g] : 0;
-    if (tid < 32) Qp[r] = p;
-    if (R < rows) {
-      qmin = min(qmin, p);
-      qmax = max(qmax, p);
-    }
-  }
-  qmin = __reduce_min_sync(FULL, qmin);
-  qmax = __reduce_max_sync(FULL, qmax);
-
-  // 3. Tile liveness from each tile's (min, max) k_pos: ``live`` unless
-  // every key follows every query or precedes every window; ``full`` when
-  // no key of the tile is masked for any row (and none lies past K).
-  const int n_bits = min(n_tiles, MAXT);
-  for (int t0 = 0; t0 < n_bits; t0 += NTH) {
-    const int tt = t0 + tid;
-    bool lv = false, fl = false;
-    if (tt < n_bits) {
-      int kmin = INT_MAX, kmax = INT_MIN;
-      const int j0 = tt * BN;
-      if (j0 + BN <= K) {
-        const int4* p4 = reinterpret_cast<const int4*>(k_pos + j0);
-#pragma unroll
-        for (int e = 0; e < BN / 4; ++e) {
-          const int4 x = p4[e];
-          kmin = min(kmin, min(min(x.x, x.y), min(x.z, x.w)));
-          kmax = max(kmax, max(max(x.x, x.y), max(x.z, x.w)));
-        }
-      } else {
-        for (int j = j0; j < K; ++j) {
-          kmin = min(kmin, k_pos[j]);
-          kmax = max(kmax, k_pos[j]);
-        }
-      }
-      const long long lo = kmin, hi = kmax;
-      const bool dead =
-          (causal && lo > qmax) ||
-          (window > 0 && hi <= static_cast<long long>(qmin) - window);
-      lv = !dead;
-      fl = j0 + BN <= K && (!causal || hi <= qmin) &&
-           (window <= 0 || lo > static_cast<long long>(qmax) - window);
-    }
-    const unsigned wl = __ballot_sync(FULL, lv);
-    const unsigned wf = __ballot_sync(FULL, fl);
-    const int word = (t0 >> 5) + (tid >> 5);
-    if (lane == 0 && word < MAXT / 32) {
-      live[word] = wl;
-      full[word] = wf;
-    }
-  }
+  // 2. The block's query positions and their range; 3. the key tiles'
+  // liveness and "full" bits.
+  int qmin, qmax;
+  block_positions(q_pos, Qp, r0, rows, g, tid, qmin, qmax);
+  mark_tiles<BN>(k_pos, K, n_tiles, qmin, qmax, causal, window, true, live,
+                 full, tid, NTH);
   cp_async_wait<0>();  // the query tile, loaded by both groups
   fence_proxy_async();
   __syncthreads();
@@ -1320,24 +1230,409 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// simt: register-tiled CUDA-core tiles (float32 above the split path's rows,
+// and the bf16 calls the wgmma path refuses)
+// ---------------------------------------------------------------------------
+
+constexpr int RPT = 4;  // packed rows per thread: one 16-byte word of P^T
+constexpr int SIMT_THREADS = BM / RPT * 16;  // row groups x 16 key groups
+constexpr int P_LD = BM + 4;  // row stride (floats) of the P^T tile
+
+// Keys per tile: 64, or 32 where dh pads to 128 or 256 (shared memory).
+__host__ __device__ constexpr int simt_key_tile(int dhp) {
+  return dhp == 64 ? 64 : 32;
+}
+
+// Row stride (floats) of the Q, K and V tiles.  The 4 floats of padding put
+// the 16-byte word (key j, columns d .. d + 3) in bank quad (j + d / 4) % 8,
+// so the 16 keys one warp reads at a column fill two wavefronts.
+__host__ __device__ constexpr int simt_ld(int dhp) { return dhp + 4; }
+
+// Q, the double-buffered K and V tiles, P^T, the two key-position slots,
+// the two liveness bitmasks and the rows' positions.
+__host__ __device__ constexpr size_t simt_smem_bytes(int dhp) {
+  return (static_cast<size_t>(BM) + 4 * simt_key_tile(dhp)) * simt_ld(dhp) *
+             4 +
+         static_cast<size_t>(simt_key_tile(dhp)) * P_LD * 4 +
+         2 * simt_key_tile(dhp) * 4 + 2 * (MAXT / 32) * 4 + BM * 4;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Four elements d .. d + 3 of a row into shared memory as float32, zero
+// where !ok or past dh: one 16-byte cp.async when ``vec`` (float32, dh % 4
+// == 0, 16-byte aligned rows), else converting loads.
+template <typename T>
+__device__ __forceinline__ void stage4(float* dst, const T* src, bool ok,
+                                       int left, bool vec) {
+  if (sizeof(T) == 4 && vec) {
+    cp_async16(smem_u32(dst), src, ok);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dst[e] = ok && e < left ? to_f(src[e]) : 0.0f;
+}
+
+// Keys j0 .. j0 + BN - 1 of one kv head's k and v (zero past K and past
+// dh) and their positions.
+template <typename T, int DHP, int BN>
+__device__ __forceinline__ void stage_kv(const T* __restrict__ kh,
+                                         const T* __restrict__ vh,
+                                         const int32_t* __restrict__ k_pos,
+                                         float* Kt, float* Vt, int* kp,
+                                         int j0, int K, size_t stride, int dh,
+                                         bool vec, int tid) {
+  constexpr int W = DHP / 4;  // 16-byte words per row
+  constexpr int LD = simt_ld(DHP);
+#pragma unroll
+  for (int i = 0; i < BN * W / SIMT_THREADS; ++i) {
+    const int c = tid + i * SIMT_THREADS;
+    const int kk = c / W;
+    const int d = (c - kk * W) * 4;
+    const bool ok = j0 + kk < K && d < dh;
+    const size_t off = ok ? (j0 + kk) * stride + d : 0;
+    stage4(Kt + kk * LD + d, kh + off, ok, dh - d, vec);
+    stage4(Vt + kk * LD + d, vh + off, ok, dh - d, vec);
+  }
+  if (tid < BN) {
+    const int j = j0 + tid;
+    cp_async4(smem_u32(kp + tid), k_pos + (j < K ? j : 0), j < K);
+  }
+}
+
+template <typename T, int DHP>
+__global__ void __launch_bounds__(SIMT_THREADS, DHP == 256 ? 1 : 2)
+flash_attention_simt_kernel(const T* __restrict__ q,
+                            const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const int32_t* __restrict__ q_pos,
+                            const int32_t* __restrict__ k_pos,
+                            T* __restrict__ out, int Q, int H, int K, int KV,
+                            int dh, int causal, int window, float softcap,
+                            float scale, int vec, int vec_out) {
+  constexpr int BN = simt_key_tile(DHP);
+  constexpr int KPT = BN / 16;   // keys per thread: tc + 16 u
+  constexpr int CW = DHP / 64;   // output words per thread: 64 c + 4 tc
+  constexpr int LD = simt_ld(DHP);
+  constexpr int TILE = BN * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);      // [BM][LD]
+  float* Ks = Qs + BM * LD;                            // [2][BN][LD]
+  float* Vs = Ks + 2 * TILE;                           // [2][BN][LD]
+  float* Ps = Vs + 2 * TILE;                           // [BN][P_LD]
+  int* Kp = reinterpret_cast<int*>(Ps + BN * P_LD);    // [2][BN]
+  unsigned* live = reinterpret_cast<unsigned*>(Kp + 2 * BN);
+  unsigned* full = live + MAXT / 32;                   // [MAXT / 32] each
+  int* Qp = reinterpret_cast<int*>(full + MAXT / 32);  // [BM]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tr = (tid >> 5) * 2 + (lane >> 4);  // rows RPT tr .. + RPT - 1
+  const int tc = lane & 15;  // keys tc + 16 u; output words 64 c + 4 tc
+  const int g = H / KV;
+  const int rows = Q * g;
+  // Row tiles in reverse across the whole grid: under a causal mask the
+  // last rows hold the most live keys, and they start first.
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int r0 = (gridDim.x - 1 - lin / gridDim.y) * BM;
+  const int bk = lin % gridDim.y;
+  const int b = bk / KV;
+  const int kvh = bk - b * KV;
+  const int n_tiles = (K + BN - 1) / BN;
+  const size_t stride = static_cast<size_t>(KV) * dh;  // key to key
+  const T* kh = k + (static_cast<size_t>(b) * K * KV + kvh) * dh;
+  const T* vh = v + (static_cast<size_t>(b) * K * KV + kvh) * dh;
+  const int dh16 = (dh + 15) & ~15;  // columns the scores read (zero past dh)
+
+  // The query tile (zero rows past Q * g, zero columns past dh).
+#pragma unroll
+  for (int i = 0; i < BM * (DHP / 4) / SIMT_THREADS; ++i) {
+    const int c = tid + i * SIMT_THREADS;
+    const int r = c / (DHP / 4);
+    const int d = (c - r * (DHP / 4)) * 4;
+    const int R = r0 + r;
+    const T* src = q;
+    if (R < rows) {
+      const int qi = R / g;
+      src = q +
+            ((static_cast<size_t>(b) * Q + qi) * H + kvh * g + (R - qi * g)) *
+                dh +
+            d;
+    }
+    stage4(Qs + r * LD + d, src, R < rows && d < dh, dh - d, vec);
+  }
+  cp_async_commit();
+
+  int qmin, qmax;
+  block_positions(q_pos, Qp, r0, rows, g, tid, qmin, qmax);
+  mark_tiles<BN>(k_pos, K, n_tiles, qmin, qmax, causal, window,
+                 aligned16(k_pos), live, full, tid, SIMT_THREADS);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  int qp[RPT];
+  bool valid[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    qp[i] = Qp[RPT * tr + i];
+    valid[i] = r0 + RPT * tr + i < rows;
+  }
+  const float sl2 = scale * LOG2E;
+  const float masked2 = MASKED * LOG2E;
+
+  float O[RPT][4 * CW];
+  float m[RPT], l[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * CW; ++c) O[i][c] = 0.0f;
+  }
+
+  // Pass 0 walks the live tiles; pass 1 the dead ones, only when a row has
+  // no live key (it must average v over all K keys).  Tile t + 1 is staged
+  // while tile t is computed.
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool want = pass == 0;
+    if (pass == 1) {
+      bool need = false;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) need |= valid[i] && m[i] <= masked2;
+      // Also the barrier after the last tile's readers.
+      if (!__syncthreads_or(need)) break;
+    }
+    int cur = next_tile(live, -1, n_tiles, want);
+    if (cur < n_tiles) {
+      stage_kv<T, DHP, BN>(kh, vh, k_pos, Ks, Vs, Kp, cur * BN, K, stride,
+                           dh, vec, tid);
+    }
+    cp_async_commit();
+    int buf = 0;
+    while (cur < n_tiles) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile ``cur`` has landed; the other slot and P^T
+                        // are free
+      const int nxt = next_tile(live, cur, n_tiles, want);
+      if (nxt < n_tiles) {
+        stage_kv<T, DHP, BN>(kh, vh, k_pos, Ks + (buf ^ 1) * TILE,
+                             Vs + (buf ^ 1) * TILE, Kp + (buf ^ 1) * BN,
+                             nxt * BN, K, stride, dh, vec, tid);
+      }
+      cp_async_commit();
+      const float* Kt = Ks + buf * TILE;
+      const float* Vt = Vs + buf * TILE;
+      const int* kp = Kp + buf * BN;
+      const bool tile_full =
+          cur < MAXT && ((full[cur >> 5] >> (cur & 31)) & 1u);
+
+      // S = Q . K^T: each thread's RPT rows x KPT keys, in 16-byte words
+      // along the head dim (each K word serves RPT rows, each Q word KPT
+      // keys).
+      float s[RPT][KPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+        for (int u = 0; u < KPT; ++u) s[i][u] = 0.0f;
+      }
+#pragma unroll
+      for (int d0 = 0; d0 < DHP; d0 += 16) {
+        if (d0 < dh16) {
+#pragma unroll
+          for (int d = d0; d < d0 + 16; d += 4) {
+            float4 a[RPT], kw[KPT];
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              a[i] = lds4(Qs + (RPT * tr + i) * LD + d);
+            }
+#pragma unroll
+            for (int u = 0; u < KPT; ++u) {
+              kw[u] = lds4(Kt + (tc + 16 * u) * LD + d);
+            }
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+              for (int u = 0; u < KPT; ++u) {
+                float x = s[i][u];
+                x = fmaf(a[i].x, kw[u].x, x);
+                x = fmaf(a[i].y, kw[u].y, x);
+                x = fmaf(a[i].z, kw[u].z, x);
+                s[i][u] = fmaf(a[i].w, kw[u].w, x);
+              }
+            }
+          }
+        }
+      }
+
+      // Scale, softcap, mask (log2 domain); the rows' maxima over the 16
+      // threads that share them.
+      float mx[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        mx[i] = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < KPT; ++u) {
+          float x;
+          if (softcap > 0.0f) {
+            x = softcap * tanhf(s[i][u] * scale / softcap) * LOG2E;
+          } else {
+            x = s[i][u] * sl2;
+          }
+          if (!tile_full) {
+            const int key = tc + 16 * u;
+            if (cur * BN + key >= K) {
+              x = -INFINITY;  // keys past K weigh 0
+            } else if (!live_key(kp[key], qp[i], causal, window)) {
+              x = masked2;
+            }
+          }
+          s[i][u] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], off));
+        }
+      }
+      // The tile holds a key below K, so each maximum is finite.
+      float alpha[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float mn = fmaxf(m[i], mx[i]);
+        alpha[i] = ex2(m[i] - mn);  // 0 while m is -inf
+        m[i] = mn;
+        l[i] *= alpha[i];
+      }
+      // P^T to shared memory: a masked key of a row that holds a live score
+      // weighs 0 without an exp (a row with none yet weighs its masked keys
+      // equally).
+#pragma unroll
+      for (int u = 0; u < KPT; ++u) {
+        float p[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const float x = s[i][u];
+          p[i] = x <= masked2 && m[i] > masked2 ? 0.0f : ex2(x - m[i]);
+          l[i] += p[i];
+        }
+        *reinterpret_cast<float4*>(Ps + (tc + 16 * u) * P_LD + RPT * tr) =
+            make_float4(p[0], p[1], p[2], p[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4 * CW; ++c) O[i][c] *= alpha[i];
+      }
+      __syncthreads();  // P^T is complete
+
+      // O += P . V: each thread's RPT rows x 4 CW columns, one key at a
+      // time (each V word serves RPT rows, each P word 4 CW columns).
+#pragma unroll 8
+      for (int j = 0; j < BN; ++j) {
+        const float4 p = lds4(Ps + j * P_LD + RPT * tr);
+        const float pr[RPT] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          const float4 w = lds4(Vt + j * LD + 64 * c + 4 * tc);
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            O[i][4 * c + 0] = fmaf(pr[i], w.x, O[i][4 * c + 0]);
+            O[i][4 * c + 1] = fmaf(pr[i], w.y, O[i][4 * c + 1]);
+            O[i][4 * c + 2] = fmaf(pr[i], w.z, O[i][4 * c + 2]);
+            O[i][4 * c + 3] = fmaf(pr[i], w.w, O[i][4 * c + 3]);
+          }
+        }
+      }
+      cur = nxt;
+      buf ^= 1;
+    }
+  }
+
+  // Row sums over the 16 threads of a row, then out = O / l.
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) l[i] += __shfl_xor_sync(FULL, l[i], off);
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int R = r0 + RPT * tr + i;
+    if (R >= rows) continue;
+    const int qi = R / g;
+    T* orow =
+        out +
+        ((static_cast<size_t>(b) * Q + qi) * H + kvh * g + (R - qi * g)) * dh;
+    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int d = 64 * c + 4 * tc;
+      if (d >= dh) continue;
+      if constexpr (sizeof(T) == 4) {
+        if (vec_out) {
+          *reinterpret_cast<float4*>(orow + d) =
+              make_float4(O[i][4 * c] * inv, O[i][4 * c + 1] * inv,
+                          O[i][4 * c + 2] * inv, O[i][4 * c + 3] * inv);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (d + e < dh) orow[d + e] = from_f<T>(O[i][4 * c + e] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
 enum Path { SIMT = 0, SPLIT = 1, WGMMA = 2 };
+
+template <typename T, int DHP>
+int launch_simt_dhp(const T* q, const T* k, const T* v, const int32_t* q_pos,
+                    const int32_t* k_pos, T* out, int B, int Q, int H, int K,
+                    int KV, int dh, int causal, int window, float softcap,
+                    float scale, cudaStream_t stream) {
+  constexpr size_t smem = simt_smem_bytes(DHP);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_simt_kernel<T, DHP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte staging: float32 rows of a multiple of 4 elements, aligned.
+  const bool f32 = sizeof(T) == 4 && dh % 4 == 0;
+  const int vec = f32 && aligned16(q) && aligned16(k) && aligned16(v);
+  const int vec_out = f32 && aligned16(out);
+  const int rows = Q * (H / KV);
+  const dim3 grid((rows + BM - 1) / BM, B * KV);
+  flash_attention_simt_kernel<T, DHP>
+      <<<grid, SIMT_THREADS, smem, stream>>>(
+      q, k, v, q_pos, k_pos, out, Q, H, K, KV, dh, causal, window, softcap,
+      scale, vec, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T>
 int launch_simt(const T* q, const T* k, const T* v, const int32_t* q_pos,
                 const int32_t* k_pos, T* out, int B, int Q, int H, int K,
                 int KV, int dh, int causal, int window, float softcap,
                 float scale, cudaStream_t stream) {
-  int qpb = 1;  // queries per block: the power of two that holds min(Q, 8)
-  while (qpb < Q && qpb < WARPS) qpb *= 2;
-  const int ksplit = WARPS / qpb;
-  const dim3 grid((Q + qpb - 1) / qpb, B * H);
-  flash_attention_kernel<T><<<grid, THREADS, 0, stream>>>(
-      q, k, v, q_pos, k_pos, out, Q, H, K, KV, dh, causal, window, softcap,
-      scale, ksplit);
-  return static_cast<int>(cudaGetLastError());
+  if (dh <= 64) {
+    return launch_simt_dhp<T, 64>(q, k, v, q_pos, k_pos, out, B, Q, H, K, KV,
+                                  dh, causal, window, softcap, scale, stream);
+  }
+  if (dh <= 128) {
+    return launch_simt_dhp<T, 128>(q, k, v, q_pos, k_pos, out, B, Q, H, K,
+                                   KV, dh, causal, window, softcap, scale,
+                                   stream);
+  }
+  return launch_simt_dhp<T, 256>(q, k, v, q_pos, k_pos, out, B, Q, H, K, KV,
+                                 dh, causal, window, softcap, scale, stream);
 }
 
 template <typename T, int R>

@@ -18,7 +18,10 @@ scores.  :func:`attention_plan` picks the kernel's path from the shapes
 alone (no value of the positions is read on the host): split-K decode
 (flash-decoding, a split kernel and a merge kernel) for at most
 ``DECODE_ROWS`` query rows per kv head, bf16 warpgroup tensor-core tiles
-(``wgmma``) above that, and the CUDA-core kernel for float32 above it.
+(``wgmma``) above that, and register-tiled CUDA-core tiles (``simt``: 64
+packed query rows of a kv head a block, skipping key tiles by position as
+``wgmma`` does) for float32 above it and the bf16 calls ``wgmma``
+refuses.
 All keep the softmax probabilities in float32 or, on the tensor cores, as
 bf16 hi + lo parts; the reference's ``naive_attention`` rounds them to v's
 dtype before P·V, so in bfloat16 the two differ by that rounding.

@@ -13,7 +13,12 @@ the reference's ``naive_attention``:
   that a split that saw no key holds m = -inf, l = 0, acc = 0;
 * tile skipping: the tensor-core path's per-tile (min, max) liveness
   rule, its walk of the live tiles and, when a row of the block has no
-  live key, of the dead ones; keys past K weigh 0.
+  live key, of the dead ones; keys past K weigh 0;
+* the CUDA-core path (``flash_attention_simt_kernel``): its walk of
+  packed 64-row blocks over BN-key tiles with "live" and "full" bits, the
+  per-tile online-softmax rescale in log2 units, p = 0 without an exp for
+  a masked key of a row that already holds a live score, and the second
+  pass for a block holding a row without a live key.
 
 Tolerances: float64 mirrors against the float32 plain version at the
 reference kernel tests' 2e-5.
@@ -387,3 +392,217 @@ def test_tile_walk_mirror_at_gemma_first_chunk():
                                atol=F32_TOL, rtol=F32_TOL)
     pairs = [t for live, _ in walks.values() for t in live]
     assert sum(not t for t in pairs) > len(pairs) / 2
+
+
+# -- the CUDA-core path's walk ----------------------------------------------
+
+LOG2E = 1.4426950408889634
+MASKED2 = FA.NEG_INF * LOG2E
+
+
+def simt_tile(dh):
+    """(DHP, BN) of the CUDA-core path: dh zero-padded to 64, 128 or 256;
+    64 keys a tile, 32 where dh pads to 128 or 256 (simt_key_tile of
+    csrc/flash_attention.cu)."""
+    dhp = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    return dhp, 64 if dhp == 64 else 32
+
+
+def simt_walk_mirror(q, k, v, qp, kp, *, causal=True, window=None,
+                     softcap=None):
+    """``flash_attention_simt_kernel``'s walk in float64: per block of 64
+    packed rows (query r // g, head r % g) of a kv head, the key tiles'
+    liveness and "full" bits from their (min, max) k_pos against the
+    block's (min, max) q_pos; the live tiles in order, each folded into the
+    rows' (m, l, O) in log2 units (masked scores -1e30 log2e, keys past K
+    -inf; a masked key of a row whose maximum is live weighs 0 without an
+    exp); then the dead tiles only if a valid row has no live key.  Returns
+    the output and, per block start r0, (live bits, full bits, second pass,
+    tiles walked)."""
+    B, Q, H, dh = q.shape
+    K, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    rows = Q * g
+    _, bn = simt_tile(dh)
+    n_tiles = math.ceil(K / bn)
+    qg = q.double().reshape(B, Q, KV, g, dh)
+    raw = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()) / math.sqrt(dh)
+    if softcap is not None:
+        raw = softcap * torch.tanh(raw / softcap)
+    raw = raw * LOG2E
+    vd = v.double().permute(0, 2, 1, 3)                   # (B, KV, K, dh)
+    out = torch.zeros((B, KV, g, Q, dh), dtype=torch.float64)
+    walks = {}
+    # The grid runs the row tiles in reverse; each block is independent.
+    for r0 in reversed(range(0, rows, TILE_ROWS)):
+        r = torch.arange(r0, min(rows, r0 + TILE_ROWS))
+        qi, hg = r // g, r % g
+        qpos = qp[qi].long()
+        qmin, qmax = int(qpos.min()), int(qpos.max())
+        live, full = [], []
+        for t in range(n_tiles):
+            ks = kp[t * bn:min(K, (t + 1) * bn)].long()
+            lo, hi = int(ks.min()), int(ks.max())
+            dead = ((causal and lo > qmax)
+                    or (window is not None and hi <= qmin - window))
+            live.append(not dead)
+            full.append((t + 1) * bn <= K and (not causal or hi <= qmin)
+                        and (window is None or lo > qmax - window))
+        s = raw[:, :, hg, qi]                          # (B, KV, rows, K)
+        m = torch.full(s.shape[:-1], -math.inf, dtype=torch.float64)
+        lsum = torch.zeros_like(m)
+        o = torch.zeros((*m.shape, dh), dtype=torch.float64)
+        walked = []
+        second = False
+        for pass_ in (0, 1):
+            if pass_ == 1:
+                second = bool((m <= MASKED2).any())
+                if not second:
+                    break
+            for t in range(n_tiles):
+                if live[t] != (pass_ == 0):
+                    continue
+                walked.append(t)
+                j = torch.arange(t * bn, (t + 1) * bn)
+                inside = j < K
+                jc = torch.clamp(j, max=K - 1)
+                x = s[..., jc]
+                if not full[t]:
+                    kpt = kp[jc].long()
+                    ok = torch.ones((len(r), bn), dtype=torch.bool)
+                    if causal:
+                        ok &= kpt[None, :] <= qpos[:, None]
+                    if window is not None:
+                        ok &= kpt[None, :] > qpos[:, None] - window
+                    x = torch.where(ok, x, MASKED2)
+                    x = torch.where(inside, x, -math.inf)
+                else:
+                    assert bool(inside.all())
+                mn = torch.maximum(m, x.max(dim=-1).values)
+                alpha = torch.where(m == -math.inf, torch.zeros_like(m),
+                                    torch.exp2(m - mn))
+                no_exp = (x <= MASKED2) & (mn > MASKED2)[..., None]
+                p = torch.where(no_exp, torch.zeros_like(x),
+                                torch.exp2(x - mn[..., None]))
+                vt = torch.where(inside[:, None], vd[:, :, jc],
+                                 torch.zeros((), dtype=torch.float64))
+                lsum = lsum * alpha + p.sum(-1)
+                o = o * alpha[..., None] + torch.einsum("bkrs,bksd->bkrd",
+                                                        p, vt)
+                m = mn
+        out[:, :, hg, qi] = o / torch.clamp(lsum, min=1e-30)[..., None]
+        walks[r0] = (live, full, second, walked)
+    return _model_layout(out, B, Q, H, dh), walks
+
+
+SIMT_CASES = {
+    # name: (B, Q, H, KV, dh, K, q_pos, k_pos, window, softcap, causal)
+    "st-100m-heads-s256": (1, 256, 12, 12, 64, 256, np.arange(256), None,
+                           None, None, True),
+    "danube-smoke-gqa-window-softcap": (2, 256, 4, 2, 16, 256,
+                                        np.arange(256), None, 16, 30.0,
+                                        True),
+    "phase6-ring-window-dh120": (1, 64, 4, 1, 120, 4096,
+                                 np.arange(4937, 5001), "ring", 4096, None,
+                                 True),
+    "gemma-first-chunk-dh256": (1, 256, 2, 2, 256, 545, np.arange(256),
+                                np.r_[np.arange(256),
+                                      np.full(289, UNWRITTEN)],
+                                None, None, True),
+    "ragged-last-tile": (2, 70, 4, 2, 16, 75, np.arange(5, 75), None, None,
+                         2.0, True),
+    "fully-masked-call": (1, 70, 2, 1, 16, 130, np.arange(70),
+                          np.arange(500, 630), None, None, True),
+    "masked-row-in-live-tile": (1, 70, 2, 1, 16, 130, np.arange(-6, 64),
+                                None, None, None, True),
+}
+
+
+def _simt_case(name):
+    (B, Q, H, KV, dh, K, q_pos, k_pos, window, softcap,
+     causal) = SIMT_CASES[name]
+    q, k, v = _inputs(100 + len(name), B, Q, H, KV, dh, K)
+    if isinstance(k_pos, str):
+        kp = _ring(K, int(q_pos[-1]))
+    else:
+        kp = torch.as_tensor(np.arange(K) if k_pos is None else k_pos,
+                             dtype=torch.int32)
+    qp = torch.as_tensor(q_pos, dtype=torch.int32)
+    return q, k, v, qp, kp, dict(causal=causal, window=window,
+                                 softcap=softcap)
+
+
+@pytest.mark.parametrize("name", sorted(SIMT_CASES))
+def test_simt_walk_mirror_matches_plain(name):
+    q, k, v, qp, kp, kw = _simt_case(name)
+    B, Q, H, dh = q.shape
+    assert FA.attention_plan(B, Q, H, k.shape[2], dh, k.shape[1],
+                             torch.float32).path == "simt"
+    got, walks = simt_walk_mirror(q, k, v, qp, kp, **kw)
+    want = FA.flash_attention_ref(q, k, v, qp, kp, **kw)
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               atol=F32_TOL, rtol=F32_TOL)
+    # Only a block holding a valid row without a live key takes the
+    # second pass (brute force over the mask).
+    live = FA.live_mask(qp, kp, kw["causal"], kw["window"])
+    g = H // k.shape[2]
+    for r0, (_, _, second, walked) in walks.items():
+        qi = torch.arange(r0, min(Q * g, r0 + TILE_ROWS)) // g
+        keyless = bool((~live[qi].any(dim=1)).any())
+        assert second == keyless
+        if not second:
+            assert len(walked) == len(set(walked))
+    if name == "fully-masked-call":
+        np.testing.assert_allclose(got[0, 3].float().numpy(),
+                                   v[0].mean(dim=0).repeat_interleave(
+                                       g, dim=0).numpy(), atol=F32_TOL)
+        assert all(s for _, _, s, _ in walks.values())
+    if name == "masked-row-in-live-tile":
+        # Rows of query 0..5 see no key; the block holding them walks every
+        # tile, the others only their live ones.
+        assert walks[0][2] and sorted(walks[0][3]) == [0, 1, 2]
+        assert not any(s for r0, (_, _, s, _) in walks.items() if r0)
+
+
+@pytest.mark.parametrize("name", sorted(SIMT_CASES))
+def test_simt_walk_mirror_matches_naive_attention(name):
+    q, k, v, qp, kp, kw = _simt_case(name)
+    got, _ = simt_walk_mirror(q, k, v, qp, kp, **kw)
+    want = np.asarray(ref_layers.naive_attention(
+        q.numpy(), k.numpy(), v.numpy(), causal=kw["causal"],
+        window=kw["window"], q_positions=qp.numpy(),
+        k_positions=kp.numpy(), softcap=kw["softcap"]))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+def test_simt_walk_skips_causal_tiles_at_st100m():
+    """st-100m's heads at S = 256: block r0 walks its (r0 / 64 + 1) live
+    tiles, the last of them the diagonal (not full), and skips the rest;
+    no block needs a second pass."""
+    q, k, v, qp, kp, kw = _simt_case("st-100m-heads-s256")
+    _, walks = simt_walk_mirror(q, k, v, qp, kp, **kw)
+    for r0, (live, full, second, walked) in walks.items():
+        n = r0 // TILE_ROWS + 1
+        assert walked == list(range(n)) and not second
+        assert live == [t < n for t in range(4)]
+        assert full == [t < n - 1 for t in range(4)]
+    # The gemma first chunk skips the unwritten slots' tiles.
+    q, k, v, qp, kp, kw = _simt_case("gemma-first-chunk-dh256")
+    _, walks = simt_walk_mirror(q, k, v, qp, kp, **kw)
+    assert all(len(w) < math.ceil(545 / 32) for _, _, _, w in walks.values())
+
+
+def test_simt_walk_ragged_last_tile():
+    """K = 75 over 64-key tiles: the last tile is never full, the block of
+    the last rows walks it (keys past K weigh 0), the first block skips
+    it."""
+    q, k, v, qp, kp, kw = _simt_case("ragged-last-tile")
+    _, bn = simt_tile(q.shape[-1])
+    assert k.shape[1] % bn
+    got, walks = simt_walk_mirror(q, k, v, qp, kp, **kw)
+    assert not any(full[-1] for _, full, _, _ in walks.values())
+    assert walks[64][3] == [0, 1] and walks[0][3] == [0]
+    want = FA.flash_attention_ref(q, k, v, qp, kp, **kw)
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               atol=F32_TOL, rtol=F32_TOL)

@@ -463,6 +463,68 @@ def test_attention_non_causal_on_card(cuda, dtype, Q, window):
     _card_attention(q, k, v, qp, kp, causal=False, window=window)
 
 
+# The CUDA-core path (flash_attention_simt_kernel: 64 packed rows a block,
+# BN-key tiles of 64, or 32 where dh pads to 128 or 256), which takes every
+# float32 call above 8 query rows per kv head and the bf16 calls the
+# tensor-core tiles refuse; against the plain version at the same
+# tolerances.
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
+SIMT_TRAIN_CASES = {
+    # chip_smoke.py's phase-15 training calls: (B, S, H, KV, dh, window,
+    # softcap), causal over positions 0..S-1.
+    "st-100m": (2, 1024, 12, 12, 64, None, None),
+    "danube-gqa-softcap": (2, 256, 4, 2, 16, 16, 30.0)}
+
+
+def _simt_attention(q, k, v, qp, kp, **kw):
+    B, Q, H, dh = q.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, kp))
+    assert FA.attention_plan(B, Q, H, k.shape[2], dh, k.shape[1], q.dtype,
+                             aligned).path == "simt"
+    return _card_attention(q, k, v, qp, kp, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SIMT_TRAIN_CASES))
+def test_simt_kernel_at_training_calls_on_card(cuda, name):
+    B, S, H, KV, dh, window, softcap = SIMT_TRAIN_CASES[name]
+    pos = np.arange(S)
+    q, k, v, qp, kp = _card_inputs(cuda, torch.float32, len(name), B, S, H,
+                                   KV, dh, S, pos, pos)
+    _simt_attention(q, k, v, qp, kp, window=window, softcap=softcap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,K_", [(64, 256), (100, 300), (130, 77)])
+@pytest.mark.parametrize("dh", [16, 64, 120, 256])
+def test_simt_kernel_head_dims_and_ragged_tiles_on_card(cuda, dh, Q, K_):
+    """Each padded head dim (64, 128, 256); Q not a multiple of the 64-row
+    block and K not a multiple of the key tile (300 and 77 keys), GQA 4
+    over 2 with a window; at K < Q the first rows have no live key."""
+    B, H, KV = 2, 8, 2
+    q, k, v, qp, kp = _card_inputs(cuda, torch.float32, dh + Q + K_, B, Q,
+                                   H, KV, dh, K_, np.arange(K_ - Q, K_),
+                                   np.arange(K_))
+    _simt_attention(q, k, v, qp, kp, window=200)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unaligned-dh64", "unaligned-dh120",
+                                  "dh12", "dh20", "dh36"])
+def test_simt_kernel_takes_bf16_calls_wgmma_refuses_on_card(cuda, case):
+    """bf16 with q, k, v at an odd element offset, or with dh not a
+    multiple of 8: the tensor-core tiles refuse them, the CUDA-core kernel
+    converts them as it stages them."""
+    B, Q, H, KV, K_ = 1, 100, 8, 2, 300
+    dh = int(case.rsplit("dh", 1)[1])
+    q, k, v, qp, kp = _card_inputs(cuda, torch.bfloat16, dh + 3, B, Q, H,
+                                   KV, dh, K_, np.arange(K_ - Q, K_),
+                                   np.arange(K_))
+    if case.startswith("unaligned"):
+        q, k, v = (_at_odd_offset(t) for t in (q, k, v))
+    _simt_attention(q, k, v, qp, kp, softcap=2.0)
+
+
 # Every path of the RMSNorm kernel (rmsnorm_plan: a block per row, several
 # rows per block, the scalar kernel), forced through the private launcher
 # and chosen by the wrapper, against the plain version on the same inputs:

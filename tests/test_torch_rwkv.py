@@ -453,7 +453,8 @@ def test_chip_smoke_profile_held_to_launch_counter():
             cs.profile_complete(bad, launched)
     # The tensor-core and CUDA-core paths launch one kernel a call.
     wg = "void (anonymous namespace)::flash_attention_wgmma_kernel<256>(...)"
-    simt = "void (anonymous namespace)::flash_attention_kernel<float>(...)"
+    simt = ("void (anonymous namespace)::flash_attention_simt_kernel<float, "
+            "64>(...)")
     launched = {"multi_seed_rows": 0, "rmsnorm": 0, "flash_attention": 5,
                 "wkv6": 0}
     assert cs.profile_complete([(2.0, 3, wg), (1.0, 2, simt)],
