@@ -31,13 +31,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    lane and on the exact numpy lane; the two verdicts must be equal;
 6. serving kernels vs plain: RMSNorm at gemma-7b's and rwkv6-3b's decode
    rows (1, 3072) and (1, 2560), the prefill chunk (256, 3072), (300,
-   3840), a d that is not a multiple of 8 (3, 3004) and an unaligned view
-   (4, 2560) at one element's offset, with the path each takes, and the
+   3840), a d that is not a multiple of 8 (3, 3004), an unaligned view
+   (4, 2560) at one element's offset and deepseek-v2-lite-16b's (1, 2048)
+   and (256, 2048), with the path each takes, and the
    row path timed at 1, 2 and 4 vectors a thread; attention at
    gemma-7b's decode, its first 256-token prefill chunk (positions
    0..255, slots 256.. unwritten: key tiles skipped) and its second, over
-   a 545-slot cache, and at danube's GQA with a 4096 window over a
-   wrapped 4096-slot ring, each in float32
+   a 545-slot cache, at danube's GQA with a 4096 window over a
+   wrapped 4096-slot ring, and at MLA's dh 192 with v zero-padded from
+   128 (decode at position 544 and the second 256-token chunk over the
+   545-slot latent cache; the output's padded columns must be 0; the
+   bound counts v at 128, the padded call's bound beside it), each in
+   float32
    (tolerance 2e-5) and bf16 (3e-2 against the float32 plain version);
    the path each attention case takes; CUDA-event and profiler times
    beside the plain version, one library call (per-call and device time;
@@ -113,12 +118,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``train/*`` and ``chaos/corrupt-latest-checkpoint`` at seeds 0, 1 and 7
    on the kernel lane, trainers on the card, each passing with the
    reference's outcome (completed requests, the mitigation, the
-   checkpoint fallback).
+   checkpoint fallback);
+19. MoE parity: deepseek-v2-lite-16b's full width cut to 2 layers,
+   float32, card vs host as in phase 7 (a 16-token prefill, 4 greedy
+   decode steps): logits within 1e-4 of their scale, greedy tokens equal,
+   every token's expert ids equal in every layer and call, the smallest
+   top-k margin of the router printed; 5 RMSNorms and 2 attentions a call;
+20. serving: deepseek-v2-lite-16b FULL in bf16 (32.4 GB: MLA and 64
+   routed experts) through ``repro_torch.launch.serve`` with phase 8's
+   traffic, every model call launching 55 RMSNorms and 27 attentions; one
+   lane's decode call profiled (its attentions the split-K kernel and its
+   merge); the served trace analyzed on both lanes with equal verdicts;
+21. MoE training: one step of mixtral-smoke and of dsv2-smoke card vs
+   host (loss within 1e-5 relative, every gradient within 1e-4 of its
+   scale), then ``train/moe-routing-collapse-smoke`` and
+   ``train/moe-collapse-rebalance-recovery`` at seeds 0, 1 and 7 on the
+   kernel lane, trainers on the card, each passing with the reference's
+   outcome (the disparity on ``train/moe/expert_1``; the rebalance by
+   window 1 and 3 clean windows after).
 
-Phases 4, 5, 8, 11, 12, 13, 14, 17 and 18 count the kernels' launches from 0 and
-fail if the main path never launched them (phase 11's tail counts its own
-in the child); they also record the seed-row launches by
-seed count k (``SEED_COUNTS``) and the kernel lane's candidacies that its
+Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20 and 21 count the kernels'
+launches from 0 and fail if the main path never launched them (phase
+11's tail counts its own in the child); they also record the seed-row
+launches by seed count k (``SEED_COUNTS``) and the kernel lane's
+candidacies that its
 float32 error bound could not settle and re-decided on the exact lane
 (``AutoAnalyzer.decisions``).  A served trace whose verdicts differ
 between the lanes is saved under ``build/split_traces/`` (the path
@@ -185,8 +208,10 @@ ENTRY_SYMBOLS = {
                         "flash_attention_simt_kernel"),
     "wkv6": ("wkv6_decode_kernel", "wkv6_kernel")}
 # The entry kernel each decode call of the served models must run: one
-# token per call is the row-per-block RMSNorm and the decode WKV-6.
+# token per call is the row-per-block RMSNorm, split-K attention (its merge
+# held to it by FOLLOWERS) and the decode WKV-6.
 DECODE_SYMBOLS = {"rmsnorm": "rmsnorm_row_kernel",
+                  "flash_attention": "flash_attention_split_kernel",
                   "wkv6": "wkv6_decode_kernel"}
 FOLLOWERS = {"flash_attention_merge_kernel": "flash_attention_split_kernel"}
 
@@ -613,19 +638,25 @@ RMS_EPS = 1e-6
 # d over more rows, a d that is not a multiple of 8 (the scalar path in
 # bf16, a vector path in float32) and an unaligned view (the scalar path).
 RMS_SHAPES = ((1, 3072, 0), (1, 2560, 0), (256, 3072, 0), (300, 3840, 0),
-              (3, 3004, 0), (4, 2560, 1))
+              (3, 3004, 0), (4, 2560, 1), (1, 2048, 0), (256, 2048, 0))
 # Timed in bf16: the shapes the served models launch, and (300, 3840).
-RMS_TIMED = ((1, 3072), (1, 2560), (256, 3072), (300, 3840))
+RMS_TIMED = ((1, 3072), (1, 2560), (256, 3072), (300, 3840), (1, 2048),
+             (256, 2048))
 GEMMA_SLOTS = 545
 UNWRITTEN = 2 ** 30
 ATTN_CASES = ("gemma-decode", "gemma-prefill", "danube-decode",
-              "danube-prefill", "gemma-prefill-first")
+              "danube-prefill", "gemma-prefill-first", "mla-decode",
+              "mla-prefill")
 # The main path launches the decode shapes most (57 and 28 launches per
 # decode call, 8 x 32 decode calls against 16 prefill chunks); those go
 # into the machine-readable kernels line, the prefill shapes beside them
 # (and rwkv6-3b's decode rows beside gemma-7b's).
 RMS_MAIN, RMS_PREFILL, RMS_RWKV = (1, 3072), (256, 3072), (1, 2560)
 ATTN_MAIN, ATTN_PREFILL = "gemma-decode", "gemma-prefill"
+# deepseek-v2-lite-16b's serving shapes (phase 20): the d = 2048 norm rows
+# and MLA's attention at dh 192 (nope 128 + rope 64, v padded from 128).
+RMS_DSV2, RMS_DSV2_PREFILL = (1, 2048), (256, 2048)
+ATTN_MLA = ("mla-decode", "mla-prefill")
 # Tolerances of the kernels against their plain versions, |got - want| <=
 # tol + tol * |want| per element: float32 at the reference kernel tests'
 # 2e-5; bf16 kernels against the float32 plain version of the same
@@ -647,8 +678,17 @@ def attention_case(name: str) -> dict:
     (positions 256..511 over written slots 0..511).  danube: H = 32,
     KV = 8, dh = 120, window 4096 over a 4096-slot ring at position 5000
     (slot i holds position i + 4096 for i <= 904, else i), decode and a
-    256-token chunk ending there."""
+    256-token chunk ending there.  mla (deepseek-v2-lite-16b at --prompt-len
+    512 --gen 32): H = KV = 16, q and k at dh = 192, v at ``dv`` = 128
+    zero-padded to 192, over the 545-slot latent cache decompressed whole
+    (slot i at position i, as MLA's cache places its keys); decode at
+    position 544 and the second 256-token chunk at positions 256..511."""
     import numpy as np
+    if name.startswith("mla"):
+        q_pos = (np.array([GEMMA_SLOTS - 1]) if name == "mla-decode"
+                 else np.arange(256, 512))
+        return dict(H=16, KV=16, dh=192, dv=128, window=None, q_pos=q_pos,
+                    k_pos=np.arange(GEMMA_SLOTS))
     if name.startswith("gemma"):
         Q, written = {"gemma-decode": (1, 273), "gemma-prefill": (256, 512),
                       "gemma-prefill-first": (256, 256)}[name]
@@ -692,6 +732,7 @@ def attention_inputs(name: str, dtype, device):
     q = rng.standard_normal((1, Q, c["H"], c["dh"]))
     k = rng.standard_normal((1, K, c["KV"], c["dh"]))
     v = rng.standard_normal((1, K, c["KV"], c["dh"]))
+    v[..., c.get("dv", c["dh"]):] = 0.0   # MLA's v, zero-padded
     ts = [torch.as_tensor(a, dtype=dtype, device=device) for a in (q, k, v)]
     pos = [torch.as_tensor(a, dtype=torch.int32, device=device)
            for a in (c["q_pos"], c["k_pos"])]
@@ -751,6 +792,10 @@ def check_attention(name: str, device) -> dict:
         if got.dtype != dtype or got.shape != q.shape:
             raise AssertionError(f"attention gave {got.dtype} {got.shape}")
         errs[tag] = _close(got, want, tol, f"attention {name} {tag}")
+        dv = attention_case(name).get("dv", q.shape[3])
+        if bool(got[..., dv:].any()):   # zero columns of v average to 0
+            raise AssertionError(f"attention {name} {tag}: columns {dv}.. "
+                                 f"of the output are not 0")
     return errs
 
 
@@ -776,24 +821,32 @@ def needed_keys(live) -> int:
     return int(np.count_nonzero(live.any(axis=0)))
 
 
-def attention_bound_ms(name: str, itemsize: int) -> tuple:
+def attention_bound_ms(name: str, itemsize: int, padded: bool = False
+                       ) -> tuple:
     """q, the k and v of the keys the function needs (``needed_keys``) and
     the positions read once, the output written once; 4·dh operations
     (score and P·V) for every unmasked (query, key, head) of this case's
     positions, at the tensor-core rate for bf16 and the float32 rate
     otherwise.  The counts are the kernel module's ``attention_work``,
-    which ``cost_of`` counts too."""
+    which ``cost_of`` counts too.  An MLA case counts the function's own
+    work, v and the output at its ``dv`` columns (2·(dh + dv) operations
+    a live pair); ``padded`` counts them at dh, as the kernel is called."""
     import numpy as np
     from repro_torch.kernels.flash_attention import attention_work
     c = attention_case(name)
-    Q, K = len(c["q_pos"]), len(c["k_pos"])
+    Q, K, H, KV, dh = (len(c["q_pos"]), len(c["k_pos"]), c["H"], c["KV"],
+                       c["dh"])
     qp, kp = c["q_pos"][:, None], c["k_pos"][None, :]
     live = kp <= qp
     if c["window"] is not None:
         live &= kp > qp - c["window"]
-    ops, nbytes = attention_work(1, Q, c["H"], c["KV"], c["dh"], K, itemsize,
-                                 int(np.count_nonzero(live)),
-                                 needed_keys(live))
+    pairs, keys = int(np.count_nonzero(live)), needed_keys(live)
+    ops, nbytes = attention_work(1, Q, H, KV, dh, K, itemsize, pairs, keys)
+    dv = c.get("dv", dh)
+    if dv != dh and not padded:
+        ops = 2.0 * (dh + dv) * H * pairs
+        nbytes = (itemsize * (Q * H * (dh + dv) + keys * KV * (dh + dv))
+                  + 4 * (Q + K))
     rate = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -910,7 +963,9 @@ def time_attention(name: str) -> dict:
         "device_ms": device_ms(kernel, "flash_attention", 50),
         "plain_ms": cuda_ms(plain, 20), "library_ms": cuda_ms(library, 100),
         "library_device_ms": library_device_ms(library),
-        "bound_ms": b_ms, "bound_by": b_by, "plan": plan._asdict(),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "padded_bound_ms": attention_bound_ms(name, 2, padded=True)[0],
+        "plan": plan._asdict(),
     }
 
 
@@ -950,12 +1005,14 @@ def _check_launches(launches: dict, cfg, calls: int, what: str) -> None:
 
 
 def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
-                       seed: int = 0) -> dict:
+                       seed: int = 0, record=None) -> dict:
     """Seeded weights on the host, copied to ``device``; a ``chunk``-token
     prefill then ``steps`` greedy decode steps on each, each side feeding
     its own greedy tokens.  Logits must agree within PARITY_RTOL of their
     scale and the greedy tokens must be equal; on the card every model
-    call must launch 2L+1 RMSNorms and L attentions or WKV-6s."""
+    call must launch 2L+1 RMSNorms and L attentions or WKV-6s.  With
+    ``record`` (model -> a list it fills during the calls) the result's
+    ``recorded`` holds each side's list."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -965,9 +1022,11 @@ def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
     card.load_state_dict(host.state_dict())
     prompt = np.random.default_rng(seed + 11).integers(
         0, cfg.vocab, size=(1, chunk), dtype=np.int32)
-    out = {}
+    out, recorded = {}, {}
     for side, model in (("card", card), ("host", host)):
         dev = model.device
+        if record is not None:
+            recorded[side] = record(model)
         K.reset_launches()
         state = model.init_decode_state(1, chunk + steps + 1)
         logits, _ = model.decode_step(
@@ -1000,7 +1059,61 @@ def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
     if torch.device(device).type == "cuda":
         _check_launches(launches, cfg, calls, "model parity run")
     return {"max_abs_err": err, "logit_scale": scale, "tokens": card_tokens,
-            "launches": launches, "calls": calls}
+            "launches": launches, "calls": calls, "recorded": recorded}
+
+
+# -- phase 19 --------------------------------------------------------------
+
+def record_routes(model) -> list:
+    """A list that fills, as ``model`` runs, with one (expert ids (L, S,
+    k), router probabilities (L, S, E)) pair a model call, both on the
+    host: a forward hook on every layer's MoE recomputes its routing
+    (``moe.route``, the function ``moe_block`` routes with) from the
+    layer's input, on its device."""
+    import torch
+    from repro_torch.models import moe
+    layers, calls = [], []
+    n = len(model.blocks)
+
+    def hook(mod, args, out):
+        probs, _, ids = moe.route(mod, mod.cfg, args[0])
+        layers.append((ids[0].cpu(), probs[0].cpu()))
+        if len(layers) == n:
+            calls.append(tuple(torch.stack(t) for t in zip(*layers)))
+            layers.clear()
+    for block in model.blocks:
+        block.moe.register_forward_hook(hook)
+    return calls
+
+
+def moe_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
+                     seed: int = 0) -> dict:
+    """``model_parity_phase`` on an MoE config, with every token's expert
+    ids in every layer held equal on card and host, call by call, and the
+    smallest top-k margin over them on the host (the k-th largest router
+    probability minus the (k+1)-th): a flip of routing between the sides
+    where the margin nears float32 rounding would show here first."""
+    import torch
+    res = model_parity_phase(cfg, device, chunk, steps, seed,
+                             record=record_routes)
+    rec = res.pop("recorded")
+    card, host = rec["card"], rec["host"]
+    if len(card) != len(host) or len(host) != res["calls"]:
+        raise AssertionError(f"recorded {len(card)} and {len(host)} routed "
+                             f"calls for {res['calls']} model calls")
+    k = cfg.moe.top_k
+    margin = float("inf")
+    for i, ((c_ids, _), (h_ids, h_probs)) in enumerate(zip(card, host)):
+        if not torch.equal(c_ids, h_ids):
+            raise AssertionError(
+                f"model call {i}: expert ids differ between card and host "
+                f"at (layer, token, choice) "
+                f"{(c_ids != h_ids).nonzero().tolist()[:8]}")
+        top = torch.sort(h_probs, dim=-1, descending=True).values
+        margin = min(margin, float((top[..., k - 1] - top[..., k]).min()))
+    res["expert_ids"] = [c.tolist() for c, _ in card]
+    res["min_margin"] = margin
+    return res
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -1310,7 +1423,11 @@ def decode_breakdown(backend,
     times = sc["times"]
     ported = {n: sum(times.get(sym, 0.0) for sym in _symbols(n)) / steps
               / 1e3 for n, c in launched.items() if c}
+    # a value read back to the host inside a call (.item(), nonzero, a
+    # boolean mask) shows as a copy to the host
+    to_host = sum(c for _, c, key in rows if key.startswith("Memcpy DtoH"))
     return {"wall_ms": wall / steps * 1e3, "busy_ms": busy / steps * 1e3,
+            "copies_to_host": to_host / steps,
             "ported_ms": ported,
             "idle_share": 1.0 - busy / wall,
             "launches": sum(r[1] for r in rows) / steps,
@@ -1412,7 +1529,8 @@ def log_breakdown(phase: str, bd: dict) -> None:
     for t, c, key in bd["top"]:
         log(f"    {t:10.5f} {c:6d}  {key}")
     log(f"[{phase}] ported kernels' device ms per call (all of each "
-        f"kernel's CUDA symbols): {bd['ported_ms']}")
+        f"kernel's CUDA symbols): {bd['ported_ms']}; copies to the host per "
+        f"call {bd['copies_to_host']}")
     log(f"[{phase}] ported kernels' launches over the "
         f"{DECODE_PROFILE_STEPS} profiled calls: profiler "
         f"{bd['profiled_launches']}, launch counter "
@@ -2294,6 +2412,21 @@ def new_entries_phase(device, seeds=CHAOS_SEEDS,
             "decisions": _sum_counts(decisions)}
 
 
+# -- phases 19-21 ----------------------------------------------------------
+
+# deepseek-v2-lite-16b FULL in bf16, served as gemma-7b is in phase 8.
+DSV2_SERVE_ARGV = ("--arch", "deepseek-v2-lite-16b", "--lanes", "4",
+                   "--requests", "8", "--prompt-len", "512", "--chunk",
+                   "256", "--gen", "32", "--arrival-rate", "2.0", "--seed",
+                   "0")
+# The MoE smoke configs trained one step card against host, and the two
+# MoE train entries.
+MOE_TRAIN_ARCHS = ("mixtral-8x22b", "deepseek-v2-lite-16b")
+MOE_TRAIN_SEQ = 64
+MOE_ENTRIES = ("train/moe-routing-collapse-smoke",
+               "train/moe-collapse-rebalance-recovery")
+
+
 # -- driver ----------------------------------------------------------------
 
 def main() -> int:
@@ -2401,8 +2534,12 @@ def main() -> int:
     for name in ATTN_CASES:
         attn_err[name] = check_attention(name, "cuda")
         attn_t[name] = t = time_attention(name)
+        padded = (f", v padded from {attention_case(name)['dv']} (bound of "
+                  f"the padded call {t['padded_bound_ms']:.6f} ms)"
+                  if "dv" in attention_case(name) else "")
         log(f"[6] attention {name} {attention_shape(name)} (B, Q, H, KV, "
-            f"dh, K): paths f32 {attention_plan_of(name, torch.float32).path}"
+            f"dh, K){padded}: paths f32 "
+            f"{attention_plan_of(name, torch.float32).path}"
             f", bf16 {t['plan']}; max|kernel-plain| f32 "
             f"{attn_err[name]['f32']:.6g} (tolerance {F32_TOL}), bf16 "
             f"{attn_err[name]['bf16']:.6g} (tolerance {BF16_TOL}); bf16 "
@@ -2636,6 +2773,63 @@ def main() -> int:
         f"re-decided {newe['decisions']})")
     log(f"[18] runs: {json.dumps(newe['runs'])}")
 
+    # 19. MoE parity: deepseek-v2-lite-16b's width, 2 layers, card vs host
+    t0 = time.perf_counter()
+    mparity = moe_parity_phase(parity_config("deepseek-v2-lite-16b"), "cuda")
+    log(f"[19] deepseek-v2-lite-16b width, 2 layers, f32: max|card-host| "
+        f"logits {mparity['max_abs_err']:.6g} of scale "
+        f"{mparity['logit_scale']:.6g} (tolerance {PARITY_RTOL} x scale); "
+        f"greedy tokens equal {mparity['tokens']}; every token's expert ids "
+        f"equal in both layers of all {mparity['calls']} calls; smallest "
+        f"top-k margin (k-th minus (k+1)-th router probability, host) "
+        f"{mparity['min_margin']:.6g}; card launches {mparity['launches']} "
+        f"over {mparity['calls']} model calls; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[19] decode calls' expert ids (layer, choice): "
+        f"{json.dumps([c for c in mparity['expert_ids'][1:]])}")
+
+    # 20. serving deepseek-v2-lite-16b FULL on the card, then its trace
+    # analyzed
+    dserved = serve_phase(DSV2_SERVE_ARGV, "cuda")
+    log(f"[20] serve {' '.join(DSV2_SERVE_ARGV)}: "
+        f"{json.dumps(dserved['summary'])}")
+    log(f"[20] {dserved['model_calls']} model calls, launches "
+        f"{dserved['launches']} (= 55 and 27 per call); "
+        f"max_memory_allocated {dserved['max_memory_allocated']} bytes; "
+        f"phase wall {dserved['wall_s']:.1f} s (model init included); "
+        f"trace (steps, lanes, regions) {dserved['trace_shape']}; CPU clock "
+        f"(name, tick s) {dserved['cpu_clock']}")
+    log_breakdown("20", dserved["breakdown"])
+    if dserved["breakdown"]["copies_to_host"]:
+        raise AssertionError("a deepseek decode call copies values to the "
+                             "host: the MoE dispatch synchronizes")
+    log(f"[20] verdict, equal on the kernel and numpy lanes "
+        f"({dserved['analysis_launches']} seed-row launches, by seed count k"
+        f" {dserved['seed_counts']}; re-decided {dserved['decisions']}): "
+        f"{json.dumps(dserved['verdict'], sort_keys=True)}")
+
+    # 21. MoE training: one step card vs host, then the MoE train entries
+    mtrain = {}
+    for arch in MOE_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        mtrain[arch] = r = train_parity_phase(
+            get_arch(arch).smoke, "cuda", batch=2, seq=MOE_TRAIN_SEQ,
+            steps=0)
+        log(f"[21] {get_arch(arch).smoke.name} f32, one step card vs host at"
+            f" 2 x {MOE_TRAIN_SEQ}: loss {r['loss']} (tolerance "
+            f"{TRAIN_LOSS_RTOL} relative), worst gradient over its scale "
+            f"{r['worst_grad']} (tolerance {GRAD_TOL}); card launches "
+            f"{r['launches']} over {r['forwards']} forwards; "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moee = new_entries_phase("cuda", names=MOE_ENTRIES)
+    log(f"[21] {len(MOE_ENTRIES)} MoE train entries at seeds "
+        f"{list(CHAOS_SEEDS)} pass on the kernel lane with the reference's "
+        f"outcomes ({len(moee['runs'])} runs, {time.perf_counter() - t0:.1f}"
+        f" s; launches {moee['launches']}, seed-row launches by seed count "
+        f"k {moee['seed_counts']}; re-decided {moee['decisions']})")
+    log(f"[21] runs: {json.dumps(moee['runs'])}")
+
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
         "name": "multi_seed_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2662,7 +2856,9 @@ def main() -> int:
                         "live_rwkv": live["seed_counts"],
                         "chaos": chaos["seed_counts"],
                         "train_trace": traced["seed_counts"],
-                        "new_entries": newe["seed_counts"]},
+                        "new_entries": newe["seed_counts"],
+                        "serve_deepseek": dserved["seed_counts"],
+                        "moe_entries": moee["seed_counts"]},
         "decisions": {"corpus": corpus["decisions"],
                       "fleet": fleet["decisions"],
                       "serve_gemma": served["decisions"],
@@ -2672,7 +2868,9 @@ def main() -> int:
                       "live_rwkv": live["decisions"],
                       "chaos": chaos["decisions"],
                       "train_trace": traced["decisions"],
-                      "new_entries": newe["decisions"]},
+                      "new_entries": newe["decisions"],
+                      "serve_deepseek": dserved["decisions"],
+                      "moe_entries": moee["decisions"]},
     }]
     for name, errs, times, main, prefill, shape in (
             ("rmsnorm", rms_err, rms_t, RMS_MAIN, RMS_PREFILL, list),
@@ -2714,6 +2912,12 @@ def main() -> int:
                      **TRAIN_ATTN_CASES[TRAIN_ATTN_MAIN],
                      **tr_attn[TRAIN_ATTN_MAIN]}
     attn["train_cases"] = {name: r for name, r in tr_attn.items()}
+    attn["launches_deepseek_serve"] = dserved["launches"]["flash_attention"]
+    attn["mla"] = {name: {"shape": attention_shape(name), "dv": 128,
+                          **attn_t[name]} for name in ATTN_MLA}
+    rms["launches_deepseek_serve"] = dserved["launches"]["rmsnorm"]
+    rms["deepseek"] = {f"{n}x{d}": rms_t[(n, d)]
+                       for n, d in (RMS_DSV2, RMS_DSV2_PREFILL)}
     t = wkv_t[WKV_MAIN]
     kernels.append({
         "name": "wkv6", "route": "cuda",

@@ -131,8 +131,11 @@ def cost_of(fn: Callable[..., Any], *args) -> Tuple[float, float]:
     where XLA's ``cost_analysis`` counts it.  Bytes sum each aten op's
     tensor inputs and outputs, which counts *unfused* traffic — every
     intermediate written and read again — where XLA's ``bytes accessed``
-    counts the fused module's.  A loop in ``fn`` is counted once per
-    iteration it runs (XLA counts a ``fori_loop`` body once).  The port's
+    counts the fused module's.  A loop whose trip count is data
+    (``scenarios.faults.iterated_work``, the trainer's expert probes) runs
+    its body once under the count (``kernels.loop_trips``), as XLA counts
+    the body of a ``fori_loop`` with a traced trip count once, so a
+    region's count is the same for every shard.  The port's
     kernels (RMSNorm, attention, WKV-6, seed rows) are ctypes launches
     that no aten-level counter sees: each wrapper call adds its kernel's
     analytic FLOPs and bytes instead (:func:`repro_torch.kernels.

@@ -11,7 +11,8 @@ it (``core/hlo.py::cost_of`` opens one): each wrapper decorated with
 ``chip_smoke.py``'s bounds use, and runs outside the active PyTorch
 dispatch modes.  The aten-level counters of ``cost_of`` cannot see a
 ctypes launch on the card, and on the CPU they must not count the plain
-version as well, so a count is the same on both devices.
+version as well, so a count is the same on both devices.  Inside one, a
+loop whose trip count is data runs its body once (:func:`loop_trips`).
 """
 import contextlib
 import functools
@@ -41,6 +42,14 @@ def counting_costs() -> Iterator[List[float]]:
         yield counts
     finally:
         _COSTS.remove(counts)
+
+
+def loop_trips(n: int) -> int:
+    """Iterations to run of a loop whose trip count is data (``n``): all
+    of them, but one inside a cost count, where the body is counted once
+    as the reference's compiled cost analysis counts the body of a
+    ``fori_loop`` with a traced trip count."""
+    return 1 if _COSTS else n
 
 
 def counted(work: Callable[..., Tuple[float, float]]):
@@ -73,6 +82,7 @@ from .rmsnorm import (RmsnormFunction, rmsnorm,  # noqa: E402
 from .wkv6 import wkv6, wkv6_ref  # noqa: E402
 
 __all__ = ["LAUNCHES", "reset_launches", "counting_costs", "counted",
+           "loop_trips",
            "multi_seed_rows", "multi_seed_rows_ref", "rmsnorm", "rmsnorm_ref",
            "rmsnorm_backward", "RmsnormFunction", "flash_attention",
            "flash_attention_ref", "flash_attention_backward",

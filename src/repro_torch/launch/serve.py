@@ -16,9 +16,14 @@ process tails while the server runs::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
         --lanes 4 --requests 8 --prompt-len 64 --gen 16 --spool-dir spool &
     PYTHONPATH=src python -m repro_torch.cli.watch_trace spool --follow
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --lanes 4 --requests 8 \\
+        --prompt-len 512 --chunk 256 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch st-100m \\
         --smoke --device cpu
 
+deepseek-v2-lite-16b (MLA and 64 routed experts, 32.4 GB of bf16
+weights) serves at full width on one 80 GB card.
 The model runs on the card (its RMSNorm and attention or WKV-6 through
 the hand-written CUDA kernels) unless ``--device cpu`` asks for the
 kernels' plain versions on the host; without a card the default fails.

@@ -4,8 +4,11 @@ The reference keeps a model's parameters as a nested dict of arrays whose
 per-layer entries are stacked along a leading L dimension (``lax.scan``
 over layers): ``{"embed": {"tokens"}, "layers": {"ln1", "ln2", "attn":
 {"wq", "wk", "wv", "wo"}, "mlp": {"wi", "wg", "wo"}}, "final_norm",
-"head"?}`` for the dense family, with ``"block": {"mu_r", ..., "cr"}`` in
-place of ``"attn"`` and ``"mlp"`` for the ssm family.
+"head"?}`` for the dense family; the moe family has ``"moe": {"router",
+"wi", "wg", "wo", "shared_wi"?, "shared_wg"?, "shared_wo"?}`` in place of
+``"mlp"``, an MLA config ``"attn": {"wq", "wkv_a", "wkv_b", "wo"}``; the
+ssm family has ``"block": {"mu_r", ..., "cr"}`` in place of ``"attn"`` and
+``"mlp"``.
 :func:`params_from_numpy` takes that tree as numpy arrays and returns the
 state dict of :class:`transformer.Transformer` for the same weights, each
 layer its own slice; :func:`params_to_tree` and :func:`params_to_numpy`
@@ -23,6 +26,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from .transformer import check_family
+
+_GROUPS = ("attn", "mlp", "moe", "block")
 
 
 def tensor_from_numpy(a: Any, device: Union[str, torch.device]
@@ -53,14 +58,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         pre = f"blocks.{i}."
         out[pre + "ln1"] = tensor_from_numpy(layers["ln1"][i], device)
         out[pre + "ln2"] = tensor_from_numpy(layers["ln2"][i], device)
-        for group in ("attn", "mlp", "block"):
+        for group in _GROUPS:
             for name, stacked in layers.get(group, {}).items():
                 out[f"{pre}{group}.{name}"] = tensor_from_numpy(stacked[i],
                                                                 device)
     return out
-
-
-_GROUPS = ("attn", "mlp", "block")
 
 
 def params_to_tree(state: Dict[str, torch.Tensor], cfg: ModelConfig

@@ -1,16 +1,18 @@
-"""Shared model layers of the dense family, as plain functions on tensors.
+"""Shared model layers of the dense, moe and ssm families, as plain
+functions on tensors.
 
-The twin of the reference's ``repro.models.layers`` (dense subset).  The
-norm and the attention call the port's kernels
-(:mod:`repro_torch.kernels`): on CUDA tensors those launch the hand-written
-CUDA kernels, on CPU tensors they run their plain PyTorch versions.  The
-reference's ``naive_attention`` and ``chunked_attention`` both become the
-one attention kernel; MLA waits for the MoE/MLA slice.
+The twin of the reference's ``repro.models.layers`` (its norms, rope,
+attention, MLA, MLP, embedding and loss).  The norm and the attention call
+the port's kernels (:mod:`repro_torch.kernels`): on CUDA tensors those
+launch the hand-written CUDA kernels, on CPU tensors they run their plain
+PyTorch versions.  The reference's ``naive_attention`` and
+``chunked_attention`` both become the one attention kernel, for MLA too.
 
 Parameters are the attributes of the modules in ``transformer.py``, in the
 reference's layouts: ``wq`` (d, H, dh), ``wk``/``wv`` (d, KV, dh), ``wo``
 (H, dh, d), ``wi``/``wg`` (d, ff), MLP ``wo`` (ff, d), the embedding
-(vocab, d).
+(vocab, d); MLA's ``wq`` (d, H, nope + rope), ``wkv_a`` (d, r + rope),
+``wkv_b`` (r, H, nope + v) and ``wo`` (H, v, d).
 """
 from __future__ import annotations
 
@@ -158,17 +160,103 @@ def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         cache["pos"][start:start + S] = positions.to(torch.int32)
         cache["idx"] += S
         k, v, k_pos = ck, cv, cache["pos"]
+    out = _attend(cfg, q, k, v, positions, k_pos)
+    return _out_project(out, p["wo"])
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, q_pos: torch.Tensor,
+            k_pos: torch.Tensor) -> torch.Tensor:
+    """The attention kernel (its autograd Function where a gradient is
+    needed) on contiguous q, k, v and int32 positions."""
     args = (q.contiguous(), k.contiguous(), v.contiguous(),
-            positions.to(torch.int32).contiguous(),
+            q_pos.to(torch.int32).contiguous(),
             k_pos.to(torch.int32).contiguous())
     if _differentiable(*args[:3]):
-        out = FlashAttentionFunction.apply(*args, cfg.causal, cfg.window,
-                                           cfg.attn_logit_softcap)
-    else:
-        out = flash_attention(*args, causal=cfg.causal, window=cfg.window,
-                              softcap=cfg.attn_logit_softcap)
-    H, dh, d = p["wo"].shape
-    return out.reshape(*out.shape[:2], H * dh) @ p["wo"].reshape(H * dh, d)
+        return FlashAttentionFunction.apply(*args, cfg.causal, cfg.window,
+                                            cfg.attn_logit_softcap)
+    return flash_attention(*args, causal=cfg.causal, window=cfg.window,
+                           softcap=cfg.attn_logit_softcap)
+
+
+def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) x (H, dh, d) -> (B, S, d), one matrix product."""
+    H, dh, d = wo.shape
+    return out.reshape(*out.shape[:2], H * dh) @ wo.reshape(H * dh, d)
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# --------------------------------------------------------------------------
+def mla_rope_cfg(cfg: ModelConfig) -> ModelConfig:
+    """MLA rotates its rope dims in the 'half' style over all of them,
+    whatever ``cfg.rope_style`` says."""
+    return cfg.with_(rope_style="half", rope_fraction=1.0)
+
+
+def mla_angles(cfg: ModelConfig, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rope angles of MLA's ``rope_head_dim`` dims at ``positions``."""
+    return rope_angles(positions, cfg.mla.rope_head_dim, cfg.rope_theta)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype,
+                   device: torch.device) -> Dict[str, object]:
+    """The latent cache: ``c_kv`` (B, max_len, r) and ``k_rope`` (B,
+    max_len, rope), written at ``idx`` (no ring, no window); slot i's key
+    sits at position i (``pos``)."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos": torch.arange(max_len, dtype=torch.int32, device=device),
+        "idx": 0,
+    }
+
+
+def mla_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  angles: Tuple[torch.Tensor, torch.Tensor],
+                  rope_cfg: ModelConfig,
+                  cache: Optional[Dict[str, object]] = None) -> torch.Tensor:
+    """MLA: keys and values compressed to a per-token latent of rank r plus
+    one rope key shared by the heads; the cache stores only those.
+
+    x (B, S, d); positions (S,) int32; ``angles`` from :func:`mla_angles`,
+    ``rope_cfg`` :func:`mla_rope_cfg` (both once per model call).  Every
+    call decompresses the whole latent (every cache slot) through
+    ``wkv_b``, as the reference does.  q and k are nope + rope wide; v is
+    zero-padded to that width for the attention kernel and sliced back.
+    The cache is updated in place.  Returns (B, S, d)."""
+    m = cfg.mla
+    nope, r = m.nope_head_dim, m.kv_lora_rank
+    q = _project(x, p["wq"])
+    q_rope = apply_rope(q[..., nope:], angles, rope_cfg)
+    kv_a = x @ p["wkv_a"]
+    c_kv, k_rope = kv_a[..., :r], kv_a[..., r:]
+    k_rope = apply_rope(k_rope[:, :, None, :], angles, rope_cfg)[:, :, 0]
+    k_pos = positions
+    if cache is not None:
+        S = x.shape[1]
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        # lax.dynamic_update_slice_in_dim clamps the start into the cache
+        start = min(max(cache["idx"], 0), cc.shape[1] - S)
+        cc[:, start:start + S] = c_kv.to(cc.dtype)
+        cr[:, start:start + S] = k_rope.to(cr.dtype)
+        cache["idx"] += S
+        c_kv, k_rope, k_pos = cc, cr, cache["pos"]
+    kv = _project(c_kv, p["wkv_b"])
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    H = k_nope.shape[2]
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:2], H, m.rope_head_dim)], dim=-1)
+    q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
+    v_p = F.pad(v, (0, q_full.shape[-1] - v.shape[-1]))
+    out = _attend(cfg, q_full, k_full, v_p, positions, k_pos)
+    return _out_project(out[..., :m.v_head_dim], p["wo"])
 
 
 # --------------------------------------------------------------------------

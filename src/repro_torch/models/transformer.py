@@ -1,6 +1,9 @@
-"""Decoder-only LM, dense and ssm families: the twin of the reference's
-``repro.models.transformer`` for ``family == "dense"`` (attention blocks)
-and ``family == "ssm"`` (RWKV-6 blocks, :mod:`.rwkv`).
+"""Decoder-only LM, dense, moe and ssm families: the twin of the
+reference's ``repro.models.transformer`` for ``family == "dense"``
+(attention blocks), ``family == "moe"`` (attention or MLA, and a routed
+mixture of experts in place of the MLP: :mod:`.moe`) and ``family ==
+"ssm"`` (RWKV-6 blocks, :mod:`.rwkv`).  An MLA config
+(``cfg.mla``) takes MLA in place of attention in either attention family.
 
 The reference stacks its layers (leading L dimension) and drives them with
 ``lax.scan``; here the blocks are an ``nn.ModuleList`` walked in Python.
@@ -14,8 +17,9 @@ the module's state dict: :func:`functional_call` runs the module on them
 
 Decode state is a list of per-layer states that :meth:`decode_step`
 updates in place (the reference returns a new state instead): ring-buffer
-KV caches (:func:`layers.init_attention_cache`) for the dense family, the
-WKV state and the two token-shift carries for the ssm family.
+KV caches (:func:`layers.init_attention_cache`) for attention, latent
+caches (:func:`layers.init_mla_cache`) for MLA, the WKV state and the two
+token-shift carries for the ssm family.
 """
 from __future__ import annotations
 
@@ -27,18 +31,20 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
+from . import moe as moe_mod
 from . import rwkv
 from .layers import (attention, cross_entropy, embed, init_attention_cache,
-                     logits_from, mlp, rms_norm, rope_angles, rope_dim)
+                     init_mla_cache, logits_from, mla_angles, mla_attention,
+                     mla_rope_cfg, mlp, rms_norm, rope_angles, rope_dim)
+
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
-            or cfg.mla is not None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (moe={cfg.moe is not None}, "
-            f"mla={cfg.mla is not None}) is not ported yet; only the dense "
-            f"and ssm families are (ROADMAP.md queue 1, item 5)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; only the "
+            f"dense, moe and ssm families are (ROADMAP.md queue 1, item 5)")
 
 
 def _param(shape, dtype, device, generator: Optional[torch.Generator],
@@ -61,38 +67,70 @@ def _zeros(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """The reference's ``init_attention`` layouts, or ``init_mla``'s for an
+    MLA config."""
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"wq": (d, H, m.nope_head_dim + m.rope_head_dim),
+                "wkv_a": (d, m.kv_lora_rank + m.rope_head_dim),
+                "wkv_b": (m.kv_lora_rank, H,
+                          m.nope_head_dim + m.v_head_dim),
+                "wo": (H, m.v_head_dim, d)}
+    KV, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"wq": (d, H, dh), "wk": (d, KV, dh), "wv": (d, KV, dh),
+            "wo": (H, dh, d)}
+
+
 class DenseBlock(nn.Module):
-    """Pre-norm attention + gated MLP, residual around each."""
+    """Pre-norm attention (or MLA) + gated MLP (or MoE), residual around
+    each: the reference's ``_dense_block``."""
 
     def __init__(self, cfg: ModelConfig, dtype, device,
                  generator: Optional[torch.Generator]):
         super().__init__()
-        d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-        dh, ff = cfg.resolved_head_dim, cfg.d_ff
+        d, ff = cfg.d_model, cfg.d_ff
         self.cfg = cfg
+        self.rope_cfg = mla_rope_cfg(cfg) if cfg.mla is not None else None
         self.ln1 = _zeros((d,), dtype, device)
         self.ln2 = _zeros((d,), dtype, device)
         self.attn = nn.ParameterDict({
-            "wq": _param((d, H, dh), dtype, device, generator),
-            "wk": _param((d, KV, dh), dtype, device, generator),
-            "wv": _param((d, KV, dh), dtype, device, generator),
-            "wo": _param((H, dh, d), dtype, device, generator),
-        })
-        self.mlp = nn.ParameterDict({
-            "wi": _param((d, ff), dtype, device, generator),
-            "wg": _param((d, ff), dtype, device, generator),
-            "wo": _param((ff, d), dtype, device, generator),
-        })
+            name: _param(shape, dtype, device, generator)
+            for name, shape in attention_shapes(cfg).items()})
+        if cfg.moe is not None:
+            self.moe = moe_mod.MoE(cfg, {
+                name: _param(shape, dtype, device, generator)
+                for name, shape in moe_mod.param_shapes(cfg).items()})
+        else:
+            self.mlp = nn.ParameterDict({
+                "wi": _param((d, ff), dtype, device, generator),
+                "wg": _param((d, ff), dtype, device, generator),
+                "wo": _param((ff, d), dtype, device, generator),
+            })
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 angles: Tuple[torch.Tensor, torch.Tensor],
-                cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+                cache: Optional[Dict[str, Any]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Returns (x, the MoE's aux loss, its expert counts (E,)); without
+        an MoE 0 and (1,) zeros, as the reference's scan carries them."""
         cfg = self.cfg
-        h = attention(self.attn, cfg, rms_norm(x, self.ln1, cfg.norm_eps),
-                      positions, angles, cache)
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        if cfg.mla is not None:
+            h = mla_attention(self.attn, cfg, h, positions, angles,
+                              self.rope_cfg, cache)
+        else:
+            h = attention(self.attn, cfg, h, positions, angles, cache)
         x = x + h
-        h = mlp(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps), cfg.activation)
-        return x + h
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        if cfg.moe is not None:
+            h, aux, counts = self.moe(h)
+        else:
+            h = mlp(self.mlp, h, cfg.activation)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            counts = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        return x + h, aux, counts
 
 
 class RWKVBlock(nn.Module):
@@ -130,7 +168,7 @@ class RWKVBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The decoder-only LM of the dense or ssm family.  With ``seed`` None
+    """The decoder-only LM of the dense, moe or ssm family.  With ``seed`` None
     the weights are left uninitialised (for loading a state dict);
     otherwise they are drawn from a ``torch.Generator`` on ``device``
     seeded with it."""
@@ -158,8 +196,11 @@ class Transformer(nn.Module):
 
     def _angles(self, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The rope angles of ``positions``, once for every layer."""
+        """The rope angles of ``positions``, once for every layer (MLA's
+        over its rope dims)."""
         cfg = self.cfg
+        if cfg.mla is not None:
+            return mla_angles(cfg, positions)
         return rope_angles(positions, rope_dim(cfg, cfg.resolved_head_dim),
                            cfg.rope_theta)
 
@@ -173,8 +214,12 @@ class Transformer(nn.Module):
         ``return_hidden`` skips the head and returns the final-normed
         hidden states (B, S, d) (the chunked-CE path).  Records a graph
         only where a parameter needs a gradient (:func:`loss_fn` calls it
-        with a dict of leaf tensors)."""
+        with a dict of leaf tensors).  ``info`` holds the summed MoE aux
+        loss ``aux`` and, for the attention families, ``expert_counts``
+        (L, E) (L, 1 of zeros without an MoE), as the reference's."""
         x = embed(self.embed, self.cfg, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        info = {}
         if self.recurrent:  # every layer from a zero state
             for block in self.blocks:
                 x = block(x)
@@ -182,9 +227,13 @@ class Transformer(nn.Module):
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=x.device)
             angles = self._angles(positions)
+            counts = []
             for block in self.blocks:
-                x = block(x, positions, angles)
-        info = {"aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+                x, a, c = block(x, positions, angles)
+                aux = aux + a
+                counts.append(c)
+            info["expert_counts"] = torch.stack(counts)
+        info = {"aux": aux, **info}
         if return_hidden:
             return rms_norm(x, self.final_norm, self.cfg.norm_eps), info
         return self._head(x), info
@@ -215,7 +264,7 @@ class Transformer(nn.Module):
                                    device=x.device)
         angles = self._angles(positions)
         for block, cache in zip(self.blocks, state["layers"]):
-            x = block(x, positions, angles, cache)
+            x = block(x, positions, angles, cache)[0]
         return self._head(x), state
 
 
@@ -239,8 +288,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             "last_cm": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                    device=device),
         } for _ in range(cfg.n_layers)]}
-    return {"layers": [init_attention_cache(cfg, batch, max_len, dtype,
-                                            device)
+    init_cache = init_mla_cache if cfg.mla is not None \
+        else init_attention_cache
+    return {"layers": [init_cache(cfg, batch, max_len, dtype, device)
                        for _ in range(cfg.n_layers)]}
 
 
@@ -292,11 +342,12 @@ def chunked_ce_from_hidden(params: Params, cfg: ModelConfig,
 def loss_fn(model: Transformer, params: Optional[Params],
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference's ``loss_fn`` for the dense and ssm families:
+    """The reference's ``loss_fn`` for the dense, moe and ssm families:
     next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
     optional ``mask``) under ``params`` (None: the module's own).  Above
     ``S·vocab = 2**26`` the loss comes chunked from the hidden states, as
-    in the reference.  Returns ``(total, {"loss", "aux"})``."""
+    in the reference.  The total adds the MoE aux loss.  Returns
+    ``(total, {"loss", "aux", "expert_counts"?})``."""
     cfg = model.cfg
     labels, mask = batch["labels"], batch.get("mask")
     tokens = batch["tokens"]

@@ -39,10 +39,6 @@ seven backends:
   through the engine's step hook, and a :class:`ServingTruth` (the traffic
   actually got served).  Bit-reproducible given the seed.
 
-The reference's two MoE train entries (``train/moe-routing-collapse-smoke``
-and ``train/moe-collapse-rebalance-recovery``) wait for the MoE family
-(ROADMAP.md queue 1, item 5).
-
 ``evaluate_corpus`` scores every entry (precision/recall of located paths,
 cause recall) — the paper's validation experiment as a regression gate.
 """
@@ -509,14 +505,24 @@ def _spool_dir(arch: str, seed: int) -> Optional[str]:
                         f"{arch}-seed{seed}-{_SPOOL_SEQ[0]:03d}")
 
 
-def _train(iters_per_shard: Tuple[int, ...], steps: int = 2,
-           arch: str = "st-100m", repeats: int = 1):
+def _shards(iters_per_shard, expert_iters) -> int:
+    if iters_per_shard is None and expert_iters is None:
+        raise ValueError("need iters_per_shard and/or expert_iters")
+    return (len(iters_per_shard) if iters_per_shard is not None
+            else len(expert_iters))
+
+
+def _train(iters_per_shard: Optional[Tuple[int, ...]] = None,
+           steps: int = 2, arch: str = "st-100m", repeats: int = 1,
+           expert_iters: Optional[Tuple[Tuple[int, ...], ...]] = None):
     """Builder for the train backend: a region-instrumented smoke Trainer
-    whose per-shard fwd_bwd iteration counts (``iters_per_shard``) carry
+    whose per-shard fwd_bwd iteration counts (``iters_per_shard``) and/or
+    per-(shard, expert) probe counts (``expert_iters``, MoE configs) carry
     the injected fault.  The region tree is built at corpus-build time so
     the entry exposes it before any execution; the trainer is built at
     collection, on the device ``run_entry`` names."""
-    shards = len(iters_per_shard)
+    shards = _shards(iters_per_shard, expert_iters)
+    iters = tuple(iters_per_shard) if iters_per_shard is not None else None
 
     def build(seed: int):
         from repro_torch.configs import get_arch
@@ -534,19 +540,23 @@ def _train(iters_per_shard: Tuple[int, ...], steps: int = 2,
                            vocab=cfg.vocab),
                 TrainerConfig(steps=steps, ckpt_dir=None, ckpt_every=0,
                               seed=seed, trace=True, trace_shards=shards,
-                              trace_iters=tuple(iters_per_shard),
+                              trace_iters=iters,
+                              trace_expert_iters=expert_iters,
                               trace_repeats=repeats,
                               trace_spool_dir=_spool_dir(arch, seed),
                               trace_chunk_steps=1,
                               trace_meta={"analyzer_kw": dict(_TRAIN_KW)}),
                 device=device)
-        tree = train_region_tree(cfg, opt_cfg, iterated=True)
+        tree = train_region_tree(cfg, opt_cfg, iterated=iters is not None,
+                                 expert_probe=expert_iters is not None)
         return tree, TrainFaultCollector(make_trainer)
     return build
 
 
-def _train_recovery(iters_per_shard: Tuple[int, ...], steps: int = 6,
-                    arch: str = "st-100m", ckpt_every: int = 0,
+def _train_recovery(iters_per_shard: Optional[Tuple[int, ...]] = None,
+                    steps: int = 6, arch: str = "st-100m",
+                    expert_iters: Optional[Tuple[Tuple[int, ...], ...]]
+                    = None, ckpt_every: int = 0,
                     analyzer_kw: Tuple[Tuple[str, Any], ...] = _TRAIN_KW,
                     trace_inject_for: Optional[Callable[[int], Any]]
                     = None):
@@ -562,7 +572,8 @@ def _train_recovery(iters_per_shard: Tuple[int, ...], steps: int = 6,
     injection sees the *live* config, so a mitigation that edits the
     config (e.g. reschedule_ckpt phase-shifting ``ckpt_every``) genuinely
     stops the fault, closing the loop end-to-end."""
-    shards = len(iters_per_shard)
+    shards = _shards(iters_per_shard, expert_iters)
+    iters = tuple(iters_per_shard) if iters_per_shard is not None else None
 
     def build(seed: int):
         import tempfile
@@ -579,8 +590,8 @@ def _train_recovery(iters_per_shard: Tuple[int, ...], steps: int = 6,
             steps=steps,
             ckpt_dir=tempfile.mkdtemp(prefix="repro-recovery-"),
             ckpt_every=ckpt_every, seed=seed, trace=True,
-            trace_shards=shards, trace_iters=tuple(iters_per_shard),
-            trace_repeats=1,
+            trace_shards=shards, trace_iters=iters,
+            trace_expert_iters=expert_iters, trace_repeats=1,
             trace_inject=(trace_inject_for(seed)
                           if trace_inject_for is not None else None),
             trace_meta={"analyzer_kw": dict(analyzer_kw)})
@@ -590,7 +601,9 @@ def _train_recovery(iters_per_shard: Tuple[int, ...], steps: int = 6,
             DataConfig(seq_len=32, global_batch=2 * shards,
                        vocab=cfg.vocab),
             tcfg, policy)
-        return train_region_tree(cfg, opt_cfg, iterated=True), coll
+        tree = train_region_tree(cfg, opt_cfg, iterated=iters is not None,
+                                 expert_probe=expert_iters is not None)
+        return tree, coll
     return build
 
 
@@ -1201,8 +1214,8 @@ register_entry(CorpusEntry(
 
 
 # Train backend: a real smoke training run through the region-instrumented
-# Trainer.  (The reference's MoE train entries wait: ROADMAP.md queue 1,
-# item 5.)  Shard 3's fwd_bwd genuinely executes 12x the iterations per step; the wide threshold_frac absorbs wall-clock noise.  The
+# Trainer.  Shard 3's fwd_bwd genuinely executes 12x the iterations per
+# step; the wide threshold_frac absorbs wall-clock noise.  The
 # fault is present from step 0, so the per-step window stream must flag it
 # from window 0 onward (onset in *time* checked on a real run too).
 register_entry(CorpusEntry(
@@ -1219,9 +1232,24 @@ register_entry(CorpusEntry(
 ))
 
 # MoE smoke train: per-expert probe regions in the instrumented tree run
-# each expert's FFN its routed share of iterations inside the jitted step
-# — a routing collapse toward expert 1 (12x the iterations on every
-# shard) surfaces as a disparity on the expert's own region.
+# each expert's FFN its routed share of iterations inside the step — a
+# routing collapse toward expert 1 (12x the iterations on every shard)
+# surfaces as a disparity on the expert's own region.
+register_entry(CorpusEntry(
+    name="train/moe-routing-collapse-smoke",
+    app="train", backend="train",
+    description="Region-instrumented mixtral-smoke Trainer run with "
+                "per-expert probe regions: every shard over-routes to "
+                "expert 1 (48 vs 4 probe iterations), a real-execution "
+                "routing collapse localized to train/moe/expert_1",
+    build=_train(expert_iters=tuple(
+        tuple(48 if e == 1 else 4 for e in range(4))
+        for _ in range(4)), steps=2, arch="mixtral-8x22b"),
+    truth=GroundTruth("disparity", frozenset({"train/moe/expert_1"})),
+    analyzer_kw=_TRAIN_KW,
+    min_precision=0.2,
+))
+
 # Recovery backend: the closed loop end-to-end (the reference's docs/mitigation.md).
 # Shard 3's genuine 12x fwd_bwd work must be flagged by the live
 # per-step verdict stream (windows 0 and 1), remeshed away at window 1
@@ -1239,6 +1267,27 @@ register_entry(CorpusEntry(
     analyzer_kw=_TRAIN_KW,
     min_precision=0.2,
     recovery=RecoveryTruth(kind="remesh", mitigate_by_window=1,
+                           clean_windows=3),
+))
+
+# Routing collapse -> expert rebalance, in place (no restart): expert 1's
+# 48-vs-4 probe iterations are flagged as a disparity on its own region;
+# the policy redistributes each shard's probe budget evenly, and the
+# remaining windows must be clean.
+register_entry(CorpusEntry(
+    name="train/moe-collapse-rebalance-recovery",
+    app="train", backend="recovery",
+    description="Closed loop: routing collapse onto expert 1 triggers "
+                "in-place expert rebalancing (trace_expert_iters "
+                "redistributed) at window 1; post-rebalance windows are "
+                "clean",
+    build=_train_recovery(expert_iters=tuple(
+        tuple(48 if e == 1 else 4 for e in range(4))
+        for _ in range(4)), steps=6, arch="mixtral-8x22b"),
+    truth=GroundTruth("disparity", frozenset({"train/moe/expert_1"})),
+    analyzer_kw=_TRAIN_KW,
+    min_precision=0.2,
+    recovery=RecoveryTruth(kind="rebalance_experts", mitigate_by_window=1,
                            clean_windows=3),
 ))
 

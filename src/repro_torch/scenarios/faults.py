@@ -34,6 +34,7 @@ from repro_torch.core.metrics import (BYTES, COMM_BYTES, COMM_TIME,
                                       RegionMetrics)
 from repro_torch.core.regions import RegionTree
 from repro_torch.core.trace import RegionTrace
+from repro_torch.kernels import loop_trips
 
 DISSIMILARITY = "dissimilarity"
 DISPARITY = "disparity"
@@ -704,12 +705,14 @@ def iterated_work(fn, indexed: bool = False):
     rather than a post-hoc metric edit.  The reference runs the same loop
     as a data-driven ``fori_loop``; eager PyTorch has no loop-invariant
     code motion to defeat, so each iteration is the body's full work.
+    Under a cost count the body runs once, as the reference's compiled
+    cost counts it (:func:`repro_torch.kernels.loop_trips`).
     With ``indexed=True`` the body receives ``(data, i)`` instead of
     ``data``."""
 
     def wrapped(state, bundle):
         data, iters = bundle
-        for i in range(int(iters)):
+        for i in range(loop_trips(int(iters))):
             state = fn(state, (data, i) if indexed else data)
         return state
 

@@ -6,10 +6,10 @@ through the port's model on its device: per-lane batch-1 decode states
 (the KV cache's ring index is shared across a batch, so lanes at
 different positions cannot share one batched state) and true chunked
 prefill on the families whose attention cache accepts S > 1 writes
-(``supports_chunk``; of those only the dense family is ported), one token
-per call on the others (the ssm family here).  On the card every model
-call goes through the hand-written kernels: RMSNorm, and attention
-(dense) or WKV-6 (ssm).
+(``supports_chunk``: the dense and moe families here), one token per
+call on the others (the ssm family here).  On the card every model call
+goes through the hand-written kernels: RMSNorm, and attention (dense,
+moe, MLA) or WKV-6 (ssm).
 
 Measurement follows the reference: perf_counter walls around each call,
 ended by ``torch.cuda.synchronize`` on the card (the reference's
@@ -42,7 +42,7 @@ from repro_torch.core import (BYTES, CPU_TIME, FLOPS, RAW_METRICS,
                               VMEM_PRESSURE, WALL_TIME)
 from repro_torch.core.collector import _pick_cpu_clock
 from repro_torch.core.trace import RegionTrace
-from repro_torch.models import ModelApi, rwkv
+from repro_torch.models import ModelApi, moe, rwkv
 from repro_torch.scenarios.traffic import prompt_tokens
 
 from .engine import DECODE, KV_APPEND, PREFILL, SAMPLE, LaneEvent, \
@@ -76,7 +76,23 @@ def call_costs(cfg, tokens: int, cache_slots: int,
               + 4·S·V                          float32 logits written
 
     The attention term counts every cache slot, masked or not, because the
-    kernel scores them all.  The ssm family (RWKV-6, H heads of dh, the
+    kernel scores them all.  The moe family replaces each layer's MLP term
+    2·S·3·d·ff by its router, its experts as the port computes them (every
+    expert over its C = max(ceil(S·k/E·capacity_factor), 1) slots, filled
+    or not: one group of S tokens at batch 1) and its shared experts, with
+    E experts of width f (``moe.d_ff``), top k, n_s shared:
+
+        2·S·d·E  +  3·2·E·C·d·f  +  3·2·S·d·f·n_s
+
+    An MLA config (latent rank r, rope dims ρ, nope dims n, v dims w; qd
+    = n + ρ) replaces each layer's attention projections and scores by
+
+        2·S·(d·H·qd + d·(r + ρ) + H·w·d)      wq, wkv_a, wo
+      + 2·K·r·H·(n + w)                       every cache slot decompressed
+      + 4·S·K·H·qd                            scores and P·V (v padded to qd)
+
+    and the KV cache's bytes by the latent's, L·K·(r + ρ)·a read and
+    L·S·(r + ρ)·a written.  The ssm family (RWKV-6, H heads of dh, the
     decay lora of rank 64; K is not used):
 
         flops = 2·S·L·(6·d² + 2·64·d + 2·d·ff)   r, k, v, g, o, cr; lora; ck, cv
@@ -87,9 +103,9 @@ def call_costs(cfg, tokens: int, cache_slots: int,
 
     The recurrence is counted as the kernel computes it, 7·dh² per (token,
     head); the function needs 5·dh² (chip_smoke.py's bound counts that).
-    Norms, rope and elementwise work are left out.  These are not expected
-    to equal the reference's numbers, which come from XLA's cost analysis
-    of the compiled program.
+    Norms, rope, the dispatch and elementwise work are left out.  These
+    are not expected to equal the reference's numbers, which come from
+    XLA's cost analysis of the compiled program.
     """
     S, K, L = tokens, cache_slots, cfg.n_layers
     d, V = cfg.d_model, cfg.vocab
@@ -103,11 +119,28 @@ def call_costs(cfg, tokens: int, cache_slots: int,
     H, KV = cfg.n_heads, cfg.n_kv_heads
     dh, ff = cfg.resolved_head_dim, cfg.d_ff
     a = torch.empty((), dtype=cfg.activation_dtype()).element_size()
-    flops = (2 * S * L * (d * H * dh + 2 * d * KV * dh + H * dh * d
-                          + 3 * d * ff)
-             + 4 * S * K * H * dh * L + 2 * S * d * V)
-    nbytes = (weight_bytes + 2 * L * K * KV * dh * a
-              + 2 * L * S * KV * dh * a + 4 * S * V)
+    if cfg.mla is not None:
+        m = cfg.mla
+        r, qd = m.kv_lora_rank + m.rope_head_dim, \
+            m.nope_head_dim + m.rope_head_dim
+        attn = (2 * S * (d * H * qd + d * r + H * m.v_head_dim * d)
+                + 2 * K * m.kv_lora_rank * H * (m.nope_head_dim
+                                                + m.v_head_dim)
+                + 4 * S * K * H * qd)
+        cache = L * K * r * a + L * S * r * a
+    else:
+        attn = (2 * S * (d * H * dh + 2 * d * KV * dh + H * dh * d)
+                + 4 * S * K * H * dh)
+        cache = 2 * L * K * KV * dh * a + 2 * L * S * KV * dh * a
+    if cfg.moe is not None:
+        mo = cfg.moe
+        f, E = mo.d_ff, mo.n_experts
+        ffn = (2 * S * d * E + 3 * 2 * E * moe.capacity_of(cfg, S) * d * f
+               + 3 * 2 * S * d * f * mo.n_shared)
+    else:
+        ffn = 2 * S * 3 * d * ff
+    flops = L * (attn + ffn) + 2 * S * d * V
+    nbytes = weight_bytes + cache + 4 * S * V
     return float(flops), float(nbytes)
 
 
@@ -156,6 +189,9 @@ class TorchBackend:
         # A window caps the cache's slots (layers.init_attention_cache).
         self.cache_slots = max_len if cfg.window is None \
             else min(max_len, cfg.window)
+        # The reference's formula, for every attention family: it
+        # over-counts an MLA cache (which holds r + rope values a token and
+        # layer), but the served trace carries the reference's numbers.
         self.kv_bytes_per_token = (
             2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim
             * torch.empty((), dtype=cfg.activation_dtype()).element_size())

@@ -1,8 +1,9 @@
 """Training loop: the step function, the traced step, checkpoints.
 
 The PyTorch port of the reference's ``repro/train/loop.py`` for the dense
-(and ssm) families.  Parameters are a dict of tensors keyed as the
-model's state dict; the model module itself is a skeleton on the
+and moe families (the ssm family waits for a WKV-6 gradient).
+Parameters are a dict of tensors keyed as the model's state dict; the
+model module itself is a skeleton on the
 ``meta`` device that :func:`repro_torch.models.transformer.loss_fn` runs
 with those tensors swapped in (``torch.func.functional_call``), and
 gradients come from ``torch.autograd.grad`` with respect to detached leaf
@@ -21,10 +22,9 @@ portable ``.npz`` artifact (the reference's format), and
 ``python -m repro_torch.cli.analyze_trace`` replays the full analysis
 offline.  Long runs stream through a
 :class:`repro_torch.stream.TraceSpool` (``trace_spool_dir``), finalized
-byte-identically to the monolithic save.
-
-The reference's MoE expert probes (``trace_expert_iters``) wait with the
-MoE family (ROADMAP.md queue 1, item 5).
+byte-identically to the monolithic save.  On MoE configs
+``trace_expert_iters`` adds per-expert probe regions to the instrumented
+tree, so routing imbalance is per-region work the analyzer can localize.
 """
 from __future__ import annotations
 
@@ -47,8 +47,6 @@ from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
 from . import checkpoint as ckpt_mod
 
 Params = Dict[str, torch.Tensor]
-_MOE_WAITS = ("MoE training and its expert probes (trace_expert_iters) are "
-              "not ported yet (ROADMAP.md queue 1, item 5)")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -91,9 +89,39 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig) -> Callable:
         new_params, new_opt, om = apply_updates(opt_cfg, params, grads,
                                                 opt_state)
         metrics = {"loss": info["loss"], "total_loss": total, **om}
+        if "expert_counts" in info:
+            metrics["expert_counts"] = info["expert_counts"]
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def _expert_probe_leaf(cfg: ModelConfig, expert: int) -> Callable:
+    """A per-expert instrumented region: run expert ``expert``'s gated FFN
+    (layer 0's weights from the live params) on the shard's probe-token
+    tile ``bundle["expert_iters"][expert]`` times, so a hot expert
+    genuinely executes more work, per shard, inside its own region.  Each
+    iteration rolls the tile by its index and adds to the carried
+    accumulator, as the reference's ``fori_loop`` does; under a cost
+    count the body runs once, as the reference's compiled cost counts
+    it (``kernels.loop_trips``), so every expert's region counts the same
+    FLOPs and its time per FLOP grows with its iterations."""
+    from repro_torch.kernels import loop_trips
+    from repro_torch.models.layers import _act
+
+    def leaf(state, bundle):
+        toks = bundle["probe_tokens"]                       # (T, d_model)
+        # the float32 tile promotes the product, as in the reference
+        wi, wg, wo = (state["params"][f"blocks.0.moe.{n}"][expert]
+                      .to(toks.dtype) for n in ("wi", "wg", "wo"))
+        probe = state["probe"]
+        for i in range(loop_trips(int(bundle["expert_iters"][expert]))):
+            x = torch.roll(toks, i, dims=0)
+            h = _act(x @ wg, cfg.activation) * (x @ wi)
+            probe = probe + (h @ wo).sum()
+        return {**state, "probe": probe}
+
+    return leaf
 
 
 def train_region_tree(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -110,9 +138,12 @@ def train_region_tree(cfg: ModelConfig, opt_cfg: AdamWConfig,
     ``iters`` genuinely executes more work — the corpus fault-injection
     hook on real model steps.  Each iteration grads the batch rolled by
     the loop index, as the reference does (the loss is
-    permutation-invariant over the batch)."""
-    if expert_probe:
-        raise NotImplementedError(_MOE_WAITS)
+    permutation-invariant over the batch).
+
+    With ``expert_probe=True`` (MoE configs only) the tree grows a
+    ``moe/expert_<e>`` leaf per routed expert (:func:`_expert_probe_leaf`)
+    and shard data arrives as a dict bundle ``{batch, iters, expert_iters,
+    probe_tokens}``."""
     model = _skeleton(cfg)
 
     def fwd_bwd(state, batch):
@@ -130,6 +161,8 @@ def train_region_tree(cfg: ModelConfig, opt_cfg: AdamWConfig,
                           for k, g in state["grads"].items()}}
 
     tree = RegionTree("train")
+    if expert_probe and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: expert_probe needs an MoE config")
     if iterated:
         # Lazy import: scenarios.corpus imports this module for the train
         # backend, so the reverse edge must not exist at module scope.
@@ -140,7 +173,28 @@ def train_region_tree(cfg: ModelConfig, opt_cfg: AdamWConfig,
             rolled = {k: torch.roll(v, i, dims=0) for k, v in batch.items()}
             return fwd_bwd(state, rolled)
 
-        tree.add("fwd_bwd", fn=iterated_work(fwd_bwd_micro, indexed=True))
+        fwd_bwd_iter = iterated_work(fwd_bwd_micro, indexed=True)
+
+    if expert_probe:
+        # Dict bundles: every region unpacks the piece it consumes.
+        if iterated:
+            def fwd_bwd_leaf(state, bundle):
+                return fwd_bwd_iter(state, (bundle["batch"],
+                                            bundle["iters"]))
+        else:
+            def fwd_bwd_leaf(state, bundle):
+                return fwd_bwd(state, bundle["batch"])
+        tree.add("fwd_bwd", fn=fwd_bwd_leaf)
+        moe_parent = tree.add("moe")
+        for e in range(cfg.moe.n_experts):
+            tree.add(f"expert_{e}", parent=moe_parent,
+                     fn=_expert_probe_leaf(cfg, e))
+
+        def optimizer_leaf(state, bundle):
+            return optimizer(state, bundle["batch"])
+        tree.add("optimizer", fn=optimizer_leaf)
+    elif iterated:
+        tree.add("fwd_bwd", fn=fwd_bwd_iter)
 
         def optimizer_b(state, bundle):
             batch, _ = bundle
@@ -166,7 +220,7 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 @dataclasses.dataclass
 class TrainerConfig:
     """The reference's trainer settings, without the two it never reads
-    (``log_every``, ``analyze_every``) and the MoE probe's tile size."""
+    (``log_every``, ``analyze_every``)."""
     steps: int = 100
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
@@ -188,10 +242,12 @@ class TrainerConfig:
     # artifact.
     trace_spool_dir: Optional[str] = None
     trace_chunk_steps: int = 8
-    # -- MoE expert probe (per-shard per-expert iteration counts): read by
-    # the mitigation policy; setting it raises in Trainer until the MoE
-    # family lands (ROADMAP.md queue 1, item 5).
+    # -- MoE expert probe (expert regions in the instrumented tree) -------
+    # Per-shard per-expert probe iteration counts ((n_shards, n_experts)):
+    # each expert_<e> region runs its FFN expert_iters[shard][e] times, so
+    # routing imbalance becomes genuinely executed per-region work.
     trace_expert_iters: Optional[Tuple[Tuple[int, ...], ...]] = None
+    trace_probe_tokens: int = 64   # probe tile rows per expert iteration
     # -- closed-loop mitigation (train/mitigate.py) -------------------------
     # A MitigationPolicy (duck-typed: observe(trainer)) consulted after
     # every traced step.
@@ -266,8 +322,6 @@ class Trainer:
                  data_cfg: DataConfig, tcfg: TrainerConfig,
                  device: Union[None, str, torch.device] = None):
         check_trainable(cfg)
-        if tcfg.trace_expert_iters is not None:
-            raise NotImplementedError(_MOE_WAITS)
         self.cfg, self.opt_cfg, self.data_cfg, self.tcfg = (
             cfg, opt_cfg, data_cfg, tcfg)
         self.device = resolve_device(device)
@@ -297,9 +351,20 @@ class Trainer:
                                     chunk_steps=self.tcfg.trace_chunk_steps,
                                     meta=self.tcfg.trace_meta)
         if self.tcfg.trace:
+            if self.tcfg.trace_expert_iters is not None and self.cfg.moe:
+                # the shard count is checked in TrainerConfig; the expert
+                # count needs the model config (train_region_tree rejects
+                # a config without an MoE itself)
+                want = self.cfg.moe.n_experts
+                for i, row in enumerate(self.tcfg.trace_expert_iters):
+                    if len(row) != want:
+                        raise ValueError(
+                            f"trace_expert_iters[{i}] has {len(row)} "
+                            f"entries for {want} experts")
             self.region_tree = train_region_tree(
                 self.cfg, self.opt_cfg,
-                iterated=self.tcfg.trace_iters is not None)
+                iterated=self.tcfg.trace_iters is not None,
+                expert_probe=self.tcfg.trace_expert_iters is not None)
             # warmup=1, as the reference: the first call of a region pays
             # one-time costs (the kernels' build and load, allocator
             # growth) that would otherwise read as a shard-0 straggler.
@@ -316,6 +381,18 @@ class Trainer:
                      "grads": zero_grads,
                      "loss": torch.zeros((), dtype=torch.float32,
                                          device=self.device)}
+            if self.tcfg.trace_expert_iters is not None:
+                state["probe"] = torch.zeros((), dtype=torch.float32,
+                                             device=self.device)
+                # Per-shard probe-token tiles, seeded and constant across
+                # steps (the per-iteration roll varies the work).
+                self._probe_tokens = [
+                    torch.randn((self.tcfg.trace_probe_tokens,
+                                 self.cfg.d_model),
+                                generator=torch.Generator().manual_seed(
+                                    self.tcfg.seed * 977 + i)
+                                ).to(self.device)
+                    for i in range(self.tcfg.trace_shards)]
             self._shard_states = [dict(state)
                                   for _ in range(self.tcfg.trace_shards)]
 
@@ -327,7 +404,17 @@ class Trainer:
         for i in range(m):
             batch = to_device(host_batch(self.data_cfg, step, n_shards=m,
                                          shard=i), self.device)
-            if self.tcfg.trace_iters is not None:
+            if self.tcfg.trace_expert_iters is not None:
+                # iters is 1 when the entry injects through the expert
+                # probe alone
+                iters = (self.tcfg.trace_iters[i]
+                         if self.tcfg.trace_iters is not None else 1)
+                data.append({
+                    "batch": batch, "iters": int(iters),
+                    "expert_iters": tuple(
+                        int(n) for n in self.tcfg.trace_expert_iters[i]),
+                    "probe_tokens": self._probe_tokens[i]})
+            elif self.tcfg.trace_iters is not None:
                 data.append((batch, int(self.tcfg.trace_iters[i])))
             else:
                 data.append(batch)

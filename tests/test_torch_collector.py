@@ -86,8 +86,9 @@ class TestRuntimeRoundTrip:
             col = trace.data[metric]
             assert (col == col[:1, :1, :1]).all(), metric
         solver = trace.col(tree.by_path("rt/solver").region_id)
-        # shard 0 runs 6 iterations of a 96x96 product
-        assert trace.data["flops"][0, 0, 0, solver] == 6 * 2 * 96 ** 3
+        # one body of the solver's 96x96 product, whatever shard 0's
+        # iterations (6), as the reference's compiled cost counts it
+        assert trace.data["flops"][0, 0, 0, solver] == 2 * 96 ** 3
         assert (trace.data["comm_bytes"] == 0).all()
         assert coll.runner.device_s == {}     # no CUDA events on the host
 
@@ -149,6 +150,30 @@ def test_iterated_work_runs_the_body_iters_times():
     assert body(1.0, (2.0, 3)) == 7.0 and calls == [2.0] * 3
     idx = F.iterated_work(lambda s, b: s + b[1], indexed=True)
     assert idx(0, ("data", 4)) == 0 + 1 + 2 + 3
+
+
+def test_cost_of_counts_a_data_loop_body_once():
+    """A loop whose trip count is data runs its body once under cost_of,
+    as the reference's compiled cost counts a ``fori_loop`` body with a
+    traced trip count once: an iterated region counts the same FLOPs on
+    every shard (before, shard 0's 6 solver iterations counted 6 bodies
+    where the reference counts one).  Outside the count every iteration
+    still runs."""
+    from repro_torch.core.hlo import cost_of
+
+    def body(s, d):
+        return torch.tanh(s @ s) * 0.5 + s * 0.5 + d.sum() * 1e-6
+
+    s, d = torch.ones((16, 16)) * 0.01, torch.ones(4)
+    once = cost_of(body, s, d)
+    assert once[0] == 2 * 16 ** 3
+    loop = F.iterated_work(body)
+    for iters in (1, 6, 64):
+        assert cost_of(loop, s, (d, iters)) == once
+    want = s
+    for _ in range(6):
+        want = body(want, d)
+    assert torch.equal(loop(s, (d, 6)), want)
 
 
 def test_runner_defaults_to_the_card():
@@ -262,7 +287,7 @@ def test_runtime_phase_rehearsed():
         assert list(regions) == ["rt/embed", "rt/solver", "rt/reduce"]
         solver = regions["rt/solver"]
         assert solver["device_s"] is None
-        assert solver["flops"] == 6 * 2 * 96 ** 3
+        assert solver["flops"] == 2 * 96 ** 3   # one loop body
         assert solver["bound_s"] == max(solver["flops"] / 989e12,
                                         solver["bytes"] / 3.35e12)
         assert len(solver["wall_s"]) == 4

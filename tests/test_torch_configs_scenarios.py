@@ -68,8 +68,7 @@ def test_corpus_registry_is_the_synthetic_one():
             (b.app, dataclasses.asdict(b.truth), b.analyzer_kw,
              b.min_precision, b.expect_onset_window)
     with pytest.raises(ValueError, match="unknown entries"):
-        port_corpus.select_entries(
-            names=["train/moe-routing-collapse-smoke"])
+        port_corpus.select_entries(names=["train/no-such-entry"])
 
 
 ARCHETYPES = [

@@ -25,7 +25,8 @@ from repro_torch.configs import get_arch
 from repro_torch.models import build, layers, transformer
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 
-ARCHS = ["gemma-7b", "mistral-nemo-12b", "h2o-danube-3-4b"]
+ARCHS = ["gemma-7b", "mistral-nemo-12b", "h2o-danube-3-4b", "mixtral-8x22b",
+         "deepseek-v2-lite-16b"]
 LOGIT_RTOL = 1e-5
 
 
@@ -53,11 +54,15 @@ def test_forward_logits_match_reference(arch):
     api, params, model, cfg = _pair(arch)
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 24),
                                              dtype=np.int32)
-    want, _ = api.forward(params, jnp.asarray(toks))
+    want, rinfo = api.forward(params, jnp.asarray(toks))
     got, info = model(torch.from_numpy(toks))
     assert got.dtype == torch.float32 and got.shape == (2, 24, cfg.vocab)
     _assert_logits(got, want)
-    assert float(info["aux"]) == 0.0
+    # the MoE aux loss (0 for a dense config) and the (L, E) expert loads
+    np.testing.assert_allclose(float(info["aux"]), float(rinfo["aux"]),
+                               rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(info["expert_counts"].numpy(),
+                                  np.asarray(rinfo["expert_counts"]))
 
 
 def _prefill_then_decode(api, params, model, cfg, prompt, chunk, gen):
@@ -100,9 +105,17 @@ def test_chunked_prefill_then_decode_matches_reference(arch, prompt_len,
     st_r, st = _prefill_then_decode(api, params, model, cfg, prompt, chunk,
                                     gen=4)
     for i, cache in enumerate(st["layers"]):
-        np.testing.assert_array_equal(cache["pos"].numpy(),
-                                      np.asarray(st_r["layers"]["pos"][i]))
         assert cache["idx"] == int(st_r["layers"]["idx"][i])
+        if cfg.mla is None:
+            np.testing.assert_array_equal(
+                cache["pos"].numpy(), np.asarray(st_r["layers"]["pos"][i]))
+            continue
+        # the MLA cache holds the latent and the rope key, slot i at
+        # position i
+        for name in ("c_kv", "k_rope"):
+            np.testing.assert_allclose(
+                cache[name].numpy(), np.asarray(st_r["layers"][name][i]),
+                atol=1e-5, rtol=1e-5)
 
 
 def test_window_clamped_chunk_write_matches_reference():
@@ -221,7 +234,7 @@ def test_seeded_init_mirrors_dense_init():
 
 
 def test_other_families_raise_naming_the_queue():
-    cfg = get_arch("mixtral-8x22b").smoke
+    cfg = get_arch("gemma-7b").smoke.with_(family="hybrid")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         transformer.Transformer(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):

@@ -215,7 +215,8 @@ def test_chip_smoke_rmsnorm_cases_rehearsed_on_cpu():
              for n, d, off in cs.RMS_SHAPES}
     assert paths == {(1, 3072, 0): "row", (1, 2560, 0): "row",
                      (256, 3072, 0): "row", (300, 3840, 0): "row",
-                     (3, 3004, 0): "scalar", (4, 2560, 1): "scalar"}
+                     (3, 3004, 0): "scalar", (4, 2560, 1): "scalar",
+                     (1, 2048, 0): "row", (256, 2048, 0): "row"}
     assert cs.rmsnorm_plan_of(3, 3004, torch.float32).path == "row"
     x, _ = cs.rmsnorm_inputs(4, 40, torch.bfloat16, "cpu", 1)
     assert x.shape == (4, 40) and x.is_contiguous() and x.data_ptr() % 16
@@ -257,7 +258,8 @@ def test_chip_smoke_kernel_phase_rehearsed_on_cpu():
             for n in cs.ATTN_CASES} == {
         "gemma-decode": "split", "danube-decode": "split",
         "gemma-prefill": "wgmma", "gemma-prefill-first": "wgmma",
-        "danube-prefill": "wgmma"}
+        "danube-prefill": "wgmma", "mla-decode": "split",
+        "mla-prefill": "wgmma"}
     assert cs.attention_plan_of("danube-prefill", torch.float32).path == \
         "simt"
 

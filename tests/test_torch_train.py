@@ -347,13 +347,26 @@ def test_ssm_training_waits_for_a_wkv6_gradient():
 
 
 def test_moe_training_waits_for_the_moe_family():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        Trainer(get_arch("mixtral-8x22b").smoke, AdamWConfig(),
-                DataConfig(), TrainerConfig(steps=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    """The MoE family trains; expert probes on a config without an MoE,
+    or with a row per shard of the wrong length, raise the reference's
+    ValueError."""
+    moe_cfg = get_arch("mixtral-8x22b").smoke
+    Trainer(moe_cfg, AdamWConfig(), DataConfig(vocab=moe_cfg.vocab),
+            TrainerConfig(steps=1), device="cpu")
+    with pytest.raises(ValueError, match="expert_probe needs an MoE config"):
         Trainer(CFG, AdamWConfig(), DataConfig(vocab=CFG.vocab),
                 TrainerConfig(steps=1, trace_shards=1,
                               trace_expert_iters=((1, 1),)), device="cpu")
+    with pytest.raises(ValueError, match=r"trace_expert_iters\[0\] has 2"):
+        Trainer(moe_cfg, AdamWConfig(), DataConfig(vocab=moe_cfg.vocab),
+                TrainerConfig(steps=1, trace_shards=1,
+                              trace_expert_iters=((1, 1),)), device="cpu")
+    # the reference raises the same errors
+    rcfg = ref_arch("st-100m").smoke
+    with pytest.raises(ValueError, match="expert_probe needs an MoE config"):
+        RefTrainer(rcfg, RefAdamWConfig(), RefDataConfig(vocab=rcfg.vocab),
+                   RefTrainerConfig(steps=1, trace_shards=1,
+                                    trace_expert_iters=((1, 1),)))
 
 
 class TestTraining:
@@ -685,9 +698,10 @@ def test_train_entry_through_the_spool(tmp_path, monkeypatch):
 
 
 def test_the_moe_train_entries_wait():
-    missing = sorted(set(REF_CORPUS) - set(CORPUS))
-    assert missing == ["train/moe-collapse-rebalance-recovery",
-                       "train/moe-routing-collapse-smoke"]
+    """The port's corpus is the reference's: all 40 entries, in its
+    order (the two MoE train entries last to arrive)."""
+    assert list(CORPUS) == list(REF_CORPUS)
+    assert len(CORPUS) == 40
 
 
 # -- the launcher and chip_smoke's phases 15-17, rehearsed on the host ----------
