@@ -32,8 +32,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. serving kernels vs plain: RMSNorm at gemma-7b's and rwkv6-3b's decode
    rows (1, 3072) and (1, 2560), the prefill chunk (256, 3072), (300,
    3840), a d that is not a multiple of 8 (3, 3004), an unaligned view
-   (4, 2560) at one element's offset and deepseek-v2-lite-16b's (1, 2048)
-   and (256, 2048), with the path each takes, and the
+   (4, 2560) at one element's offset, deepseek-v2-lite-16b's (1, 2048)
+   and (256, 2048), recurrentgemma-9b's (1, 4096) and seamless-m4t-medium's
+   (1, 1024) and (1024, 1024), with the path each takes, and the
    row path timed at 1, 2 and 4 vectors a thread; attention at
    gemma-7b's decode, its first 256-token prefill chunk (positions
    0..255, slots 256.. unwritten: key tiles skipped) and its second, over
@@ -41,7 +42,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    wrapped 4096-slot ring, and at MLA's dh 192 with v zero-padded from
    128 (decode at position 544 and the second 256-token chunk over the
    545-slot latent cache; the output's padded columns must be 0; the
-   bound counts v at 128, the padded call's bound beside it), each in
+   bound counts v at 128, the padded call's bound beside it), at
+   phi-3-vision-4.2b's dh 96 (H = KV = 32: decode and the second chunk
+   over the 545-slot cache), at recurrentgemma-9b's local MQA decode (H
+   16, KV 1, dh 256, window 2048 over a wrapped 2048-slot ring) and at
+   seamless-m4t-medium's non-causal encoder (Q = K = 1024, H 16, dh 64)
+   and cross-attention decode (Q 1 over 1024 frames), each in
    float32
    (tolerance 2e-5) and bf16 (3e-2 against the float32 plain version);
    the path each attention case takes; CUDA-event and profiler times
@@ -135,10 +141,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``train/moe-collapse-rebalance-recovery`` at seeds 0, 1 and 7 on the
    kernel lane, trainers on the card, each passing with the reference's
    outcome (the disparity on ``train/moe/expert_1``; the rebalance by
-   window 1 and 3 clean windows after).
+   window 1 and 3 clean windows after);
+22. vlm: phi-3-vision-4.2b's full width cut to 2 layers, float32, card vs
+   host: a forward over a 576-patch prefix and 64 text tokens, then a
+   16-token prefill and 4 greedy decode steps (logits within 1e-4 of
+   their scale, greedy tokens equal), then one training step's loss
+   (1e-5 relative) and every gradient, ``vis_proj``'s included (1e-4 of
+   its scale); then FULL in bf16 served with phase 8's traffic, every
+   model call launching 65 RMSNorms and 32 attentions, one lane's decode
+   call profiled, the trace's verdicts equal on both lanes; then one FULL
+   forward over the 576-patch prefix and 64 tokens, its logits finite;
+23. hybrid: recurrentgemma-9b's full width cut to 5 layers (one (rec,
+   rec, attn) block and a (rec, rec) tail), float32, card vs host: a
+   16-token forward, the prompt fed one token a call carrying the conv
+   and h state and 4 greedy steps, one training step through the plain
+   RG-LRU scan, checked as in phase 22; then FULL in bf16 served one
+   token a call with phase 11's traffic, 77 RMSNorms and 12 attentions a
+   call, its decode attentions on the ``wgmma`` path the plan picks for
+   16 query rows on one kv head;
+24. encdec: seamless-m4t-medium's full width cut to 2 encoder and 2
+   decoder layers, float32, card vs host: the encoder output over 1024
+   stub frames and a forward, then 4 prompt tokens fed one a call and 4
+   greedy steps, then one training step (cross-attention's gradient
+   through the kernel's autograd Function), checked as in phase 22; then
+   FULL in bf16 served with phase 11's traffic, each request encoding its
+   1024 frames when it arrives: 37 RMSNorms and 24 attentions a decode
+   call, 25 and 12 an encode.
 
-Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20 and 21 count the kernels'
-launches from 0 and fail if the main path never launched them (phase
+Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21 and 22-24 count the
+kernels' launches from 0 and fail if the main path never launched them (phase
 11's tail counts its own in the child); they also record the seed-row
 launches by seed count k (``SEED_COUNTS``) and the kernel lane's
 candidacies that its
@@ -209,7 +240,8 @@ ENTRY_SYMBOLS = {
     "wkv6": ("wkv6_decode_kernel", "wkv6_kernel")}
 # The entry kernel each decode call of the served models must run: one
 # token per call is the row-per-block RMSNorm, split-K attention (its merge
-# held to it by FOLLOWERS) and the decode WKV-6.
+# held to it by FOLLOWERS; ``decode_symbols`` puts in the path the plan
+# picks where a call packs more query rows) and the decode WKV-6.
 DECODE_SYMBOLS = {"rmsnorm": "rmsnorm_row_kernel",
                   "flash_attention": "flash_attention_split_kernel",
                   "wkv6": "wkv6_decode_kernel"}
@@ -638,15 +670,17 @@ RMS_EPS = 1e-6
 # d over more rows, a d that is not a multiple of 8 (the scalar path in
 # bf16, a vector path in float32) and an unaligned view (the scalar path).
 RMS_SHAPES = ((1, 3072, 0), (1, 2560, 0), (256, 3072, 0), (300, 3840, 0),
-              (3, 3004, 0), (4, 2560, 1), (1, 2048, 0), (256, 2048, 0))
+              (3, 3004, 0), (4, 2560, 1), (1, 2048, 0), (256, 2048, 0),
+              (1, 4096, 0), (1, 1024, 0), (1024, 1024, 0))
 # Timed in bf16: the shapes the served models launch, and (300, 3840).
 RMS_TIMED = ((1, 3072), (1, 2560), (256, 3072), (300, 3840), (1, 2048),
-             (256, 2048))
+             (256, 2048), (1, 4096), (1, 1024), (1024, 1024))
 GEMMA_SLOTS = 545
 UNWRITTEN = 2 ** 30
 ATTN_CASES = ("gemma-decode", "gemma-prefill", "danube-decode",
               "danube-prefill", "gemma-prefill-first", "mla-decode",
-              "mla-prefill")
+              "mla-prefill", "phi3v-decode", "phi3v-prefill",
+              "rgemma-decode", "seamless-encode", "seamless-cross")
 # The main path launches the decode shapes most (57 and 28 launches per
 # decode call, 8 x 32 decode calls against 16 prefill chunks); those go
 # into the machine-readable kernels line, the prefill shapes beside them
@@ -657,6 +691,14 @@ ATTN_MAIN, ATTN_PREFILL = "gemma-decode", "gemma-prefill"
 # and MLA's attention at dh 192 (nope 128 + rope 64, v padded from 128).
 RMS_DSV2, RMS_DSV2_PREFILL = (1, 2048), (256, 2048)
 ATTN_MLA = ("mla-decode", "mla-prefill")
+# The last three families' serving shapes (phases 22-24): the norm rows of
+# recurrentgemma-9b (d 4096) and seamless-m4t-medium (d 1024, and its
+# 1024-frame encode), phi-3-vision-4.2b's dh 96 (padded to 128 inside the
+# kernel), recurrentgemma-9b's local MQA decode (16 query rows on one kv
+# head) and seamless's non-causal encoder and cross-attention.
+RMS_FAMILIES = ((1, 4096), (1, 1024), (1024, 1024))
+ATTN_FAMILIES = ("phi3v-decode", "phi3v-prefill", "rgemma-decode",
+                 "seamless-encode", "seamless-cross")
 # Tolerances of the kernels against their plain versions, |got - want| <=
 # tol + tol * |want| per element: float32 at the reference kernel tests'
 # 2e-5; bf16 kernels against the float32 plain version of the same
@@ -670,38 +712,54 @@ BF16_FLOP_PER_S = 989e12
 
 
 def attention_case(name: str) -> dict:
-    """Shape and positions of one attention check.  gemma: H = KV = 16,
-    dh = 256 over the 545-slot cache; decode at position 272 with slots
-    273.. unwritten, prefill of the first 256-token chunk (positions
-    0..255 over written slots 0..255, slots 256..544 unwritten: the main
-    path's first chunk, where key tiles are skipped) and of the second
-    (positions 256..511 over written slots 0..511).  danube: H = 32,
-    KV = 8, dh = 120, window 4096 over a 4096-slot ring at position 5000
-    (slot i holds position i + 4096 for i <= 904, else i), decode and a
-    256-token chunk ending there.  mla (deepseek-v2-lite-16b at --prompt-len
-    512 --gen 32): H = KV = 16, q and k at dh = 192, v at ``dv`` = 128
-    zero-padded to 192, over the 545-slot latent cache decompressed whole
-    (slot i at position i, as MLA's cache places its keys); decode at
-    position 544 and the second 256-token chunk at positions 256..511."""
+    """Shape and positions of one attention check (causal unless the case
+    says ``causal=False``).  gemma: H = KV = 16, dh = 256 over the
+    545-slot cache; decode at position 272 with slots 273.. unwritten,
+    prefill of the first 256-token chunk (positions 0..255 over written
+    slots 0..255, slots 256..544 unwritten: the main path's first chunk,
+    where key tiles are skipped) and of the second (positions 256..511
+    over written slots 0..511).  phi3v: the same over H = KV = 32 heads of
+    dh = 96.  danube: H = 32, KV = 8, dh = 120, window 4096 over a
+    4096-slot ring at position 5000 (slot i holds position i + 4096 for
+    i <= 904, else i), decode and a 256-token chunk ending there.  rgemma:
+    recurrentgemma-9b's local MQA, H = 16, KV = 1, dh = 256, window 2048
+    over a wrapped 2048-slot ring at position 3000, decode.  mla
+    (deepseek-v2-lite-16b at --prompt-len 512 --gen 32): H = KV = 16, q
+    and k at dh = 192, v at ``dv`` = 128 zero-padded to 192, over the
+    545-slot latent cache decompressed whole (slot i at position i, as
+    MLA's cache places its keys); decode at position 544 and the second
+    256-token chunk at positions 256..511.  seamless: H = KV = 16, dh =
+    64, non-causal over 1024 encoder frames, the encoder's self-attention
+    (Q = 1024) and a decoder token's cross-attention (Q = 1 at position
+    40)."""
     import numpy as np
     if name.startswith("mla"):
         q_pos = (np.array([GEMMA_SLOTS - 1]) if name == "mla-decode"
                  else np.arange(256, 512))
         return dict(H=16, KV=16, dh=192, dv=128, window=None, q_pos=q_pos,
                     k_pos=np.arange(GEMMA_SLOTS))
-    if name.startswith("gemma"):
-        Q, written = {"gemma-decode": (1, 273), "gemma-prefill": (256, 512),
-                      "gemma-prefill-first": (256, 256)}[name]
+    if name.startswith("seamless"):
+        q_pos = (np.arange(1024) if name == "seamless-encode"
+                 else np.array([40]))
+        return dict(H=16, KV=16, dh=64, window=None, causal=False,
+                    q_pos=q_pos, k_pos=np.arange(1024))
+    if name.startswith(("gemma", "phi3v")):
+        model, kind = name.split("-", 1)
+        Q, written = {"decode": (1, 273), "prefill": (256, 512),
+                      "prefill-first": (256, 256)}[kind]
         k_pos = np.full(GEMMA_SLOTS, UNWRITTEN, np.int64)
         k_pos[:written] = np.arange(written)
         q_pos = np.arange(written - Q, written)
-        return dict(H=16, KV=16, dh=256, window=None, q_pos=q_pos,
+        H, dh = (16, 256) if model == "gemma" else (32, 96)
+        return dict(H=H, KV=H, dh=dh, window=None, q_pos=q_pos,
                     k_pos=k_pos)
-    slots, last = 4096, 5000
+    H, KV, dh, slots, last = ((32, 8, 120, 4096, 5000)
+                              if name.startswith("danube")
+                              else (16, 1, 256, 2048, 3000))
     i = np.arange(slots)
     k_pos = np.where(i <= last - slots, i + slots, i)
-    Q = 1 if name == "danube-decode" else 256
-    return dict(H=32, KV=8, dh=120, window=4096,
+    Q = 1 if name.endswith("decode") else 256
+    return dict(H=H, KV=KV, dh=dh, window=slots,
                 q_pos=np.arange(last - Q + 1, last + 1), k_pos=k_pos)
 
 
@@ -786,9 +844,11 @@ def check_attention(name: str, device) -> dict:
     for dtype, tol, tag in ((torch.float32, F32_TOL, "f32"),
                             (torch.bfloat16, BF16_TOL, "bf16")):
         (q, k, v, qp, kp), window = attention_inputs(name, dtype, device)
-        got = K.flash_attention(q, k, v, qp, kp, causal=True, window=window)
+        causal = attention_case(name).get("causal", True)
+        got = K.flash_attention(q, k, v, qp, kp, causal=causal,
+                                window=window)
         want = K.flash_attention_ref(q.float(), k.float(), v.float(), qp, kp,
-                                     causal=True, window=window)
+                                     causal=causal, window=window)
         if got.dtype != dtype or got.shape != q.shape:
             raise AssertionError(f"attention gave {got.dtype} {got.shape}")
         errs[tag] = _close(got, want, tol, f"attention {name} {tag}")
@@ -837,7 +897,8 @@ def attention_bound_ms(name: str, itemsize: int, padded: bool = False
     Q, K, H, KV, dh = (len(c["q_pos"]), len(c["k_pos"]), c["H"], c["KV"],
                        c["dh"])
     qp, kp = c["q_pos"][:, None], c["k_pos"][None, :]
-    live = kp <= qp
+    live = (kp <= qp if c.get("causal", True)
+            else np.ones((Q, K), dtype=bool))
     if c["window"] is not None:
         live &= kp > qp - c["window"]
     pairs, keys = int(np.count_nonzero(live)), needed_keys(live)
@@ -937,21 +998,24 @@ def time_attention(name: str) -> dict:
     from repro_torch import kernels as K
     (q, k, v, qp, kp), window = attention_inputs(name, torch.bfloat16,
                                                  "cuda")
+    causal = attention_case(name).get("causal", True)
     g = q.shape[2] // k.shape[2]
     qh = q.transpose(1, 2).contiguous()
     kh = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     vh = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-    mask = kp[None, :] <= qp[:, None]
+    mask = (kp[None, :] <= qp[:, None] if causal else
+            torch.ones((len(qp), len(kp)), dtype=torch.bool, device="cuda"))
     if window is not None:
         mask &= kp[None, :] > qp[:, None] - window
     scale = 1.0 / math.sqrt(q.shape[3])
     b_ms, b_by = attention_bound_ms(name, 2)
 
     def kernel():
-        return K.flash_attention(q, k, v, qp, kp, causal=True, window=window)
+        return K.flash_attention(q, k, v, qp, kp, causal=causal,
+                                 window=window)
 
     def plain():
-        return K.flash_attention_ref(q, k, v, qp, kp, causal=True,
+        return K.flash_attention_ref(q, k, v, qp, kp, causal=causal,
                                      window=window)
 
     def library():
@@ -978,61 +1042,125 @@ def time_attention(name: str) -> dict:
 PARITY_RTOL = 1e-4
 
 
-def parity_config(arch: str = "gemma-7b"):
-    """``arch`` at full width, cut to 2 layers, in float32."""
+def parity_config(arch: str = "gemma-7b", n_layers: int = 2):
+    """``arch`` at full width, cut to ``n_layers`` layers (an encdec's
+    encoder too), in float32."""
     from repro_torch.configs import get_arch
-    return get_arch(arch).full.with_(
-        n_layers=2, dtype="float32", param_dtype="float32")
+    full = get_arch(arch).full
+    enc = {"n_encoder_layers": n_layers} if full.family == "encdec" else {}
+    return full.with_(n_layers=n_layers, dtype="float32",
+                      param_dtype="float32", **enc)
+
+
+def _attention_layers(cfg) -> int:
+    """Attention sublayers of a decoder-only model: every layer but a
+    hybrid's recurrent ones."""
+    if cfg.family != "hybrid":
+        return cfg.n_layers
+    from repro_torch.models.transformer import hybrid_pattern
+    n_blocks, tail = hybrid_pattern(cfg)
+    kinds = list(cfg.recurrent.block_pattern) * n_blocks + list(tail)
+    return cfg.n_layers - kinds.count("rec")
 
 
 def launches_per_call(cfg) -> dict:
-    """The kernel launches of one model call of ``cfg`` on the card: two
-    RMSNorms a block and the final one, and one attention (dense) or WKV-6
-    (ssm) a block; no other kernel."""
-    mixer = "wkv6" if cfg.family == "ssm" else "flash_attention"
-    return {"rmsnorm": 2 * cfg.n_layers + 1, mixer: cfg.n_layers}
+    """The kernel launches of one model call (a decode call, or a
+    decoder-only forward) of ``cfg`` on the card: two RMSNorms a layer and
+    the final one, and one attention a layer (a hybrid's attention
+    sublayers only) or one WKV-6 a layer (ssm); an encdec decoder layer has
+    three RMSNorms and two attentions (self and cross).  No other kernel."""
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        return {"rmsnorm": 3 * L + 1, "flash_attention": 2 * L}
+    if cfg.family == "ssm":
+        return {"rmsnorm": 2 * L + 1, "wkv6": L}
+    return {"rmsnorm": 2 * L + 1, "flash_attention": _attention_layers(cfg)}
 
 
-def _check_launches(launches: dict, cfg, calls: int, what: str) -> None:
-    """Every kernel launched exactly ``calls`` times its per-call count,
-    the others not at all."""
+def launches_per_encode(cfg) -> dict:
+    """An encdec encode's launches: two RMSNorms an encoder layer and the
+    final one, one (non-causal) attention a layer."""
+    L = cfg.n_encoder_layers
+    return {"rmsnorm": 2 * L + 1, "flash_attention": L}
+
+
+def _check_launches(launches: dict, cfg, calls: int, what: str,
+                    encodes: int = 0) -> None:
+    """Every kernel launched exactly ``calls`` times its per-call count
+    and ``encodes`` times its per-encode count, the others not at all."""
     from repro_torch import kernels as K
     want = {name: 0 for name in K.LAUNCHES}
     want.update({k: n * calls for k, n in launches_per_call(cfg).items()})
+    if encodes:
+        for k, n in launches_per_encode(cfg).items():
+            want[k] += n * encodes
     if launches != want or calls == 0:
         raise AssertionError(f"{what} launched {launches}, want {want} for "
-                             f"{calls} model calls")
+                             f"{calls} model calls and {encodes} encodes")
+
+
+def parity_models(cfg, device, seed: int = 0) -> tuple:
+    """Seeded weights on the host and a copy of them on ``device``."""
+    from repro_torch.models import family_module
+    mod = family_module(cfg)
+    host = mod.init(cfg, seed, "cpu")
+    card = mod.init(cfg, None, device)
+    card.load_state_dict(host.state_dict())
+    return host, card
+
+
+def stub_frames(cfg, seed: int = 0, batch: int = 1):
+    """The stub frontend's frames (batch, frontend_tokens, d), float32 on
+    the host, seeded."""
+    import torch
+    gen = torch.Generator().manual_seed(seed * 131 + 7)
+    return torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                       generator=gen)
 
 
 def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
-                       seed: int = 0, record=None) -> dict:
-    """Seeded weights on the host, copied to ``device``; a ``chunk``-token
-    prefill then ``steps`` greedy decode steps on each, each side feeding
-    its own greedy tokens.  Logits must agree within PARITY_RTOL of their
-    scale and the greedy tokens must be equal; on the card every model
-    call must launch 2L+1 RMSNorms and L attentions or WKV-6s.  With
-    ``record`` (model -> a list it fills during the calls) the result's
-    ``recorded`` holds each side's list."""
+                       seed: int = 0, record=None, models=None,
+                       prefill_chunk: int | None = None) -> dict:
+    """Seeded weights on the host, copied to ``device`` (or the ``models``
+    (host, card) given); a ``chunk``-token prompt prefilled in pieces of
+    ``prefill_chunk`` tokens (default: one piece) then ``steps`` greedy
+    decode steps on each, each side feeding its own greedy tokens; an
+    encdec decodes against the encoding of :func:`stub_frames`.  Logits
+    must agree within PARITY_RTOL of their scale and the greedy tokens
+    must be equal; on the card every model call must launch its
+    ``launches_per_call`` (and the encode its ``launches_per_encode``).
+    With ``record`` (model -> a list it fills during the calls) the
+    result's ``recorded`` holds each side's list."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
-    from repro_torch.models.transformer import Transformer
-    host = Transformer(cfg, "cpu", seed)
-    card = Transformer(cfg, device, seed=None)
-    card.load_state_dict(host.state_dict())
+    host, card = models if models is not None else \
+        parity_models(cfg, device, seed)
+    piece = prefill_chunk or chunk
     prompt = np.random.default_rng(seed + 11).integers(
         0, cfg.vocab, size=(1, chunk), dtype=np.int32)
+    encodes = int(cfg.family == "encdec")
     out, recorded = {}, {}
     for side, model in (("card", card), ("host", host)):
         dev = model.device
         if record is not None:
             recorded[side] = record(model)
         K.reset_launches()
-        state = model.init_decode_state(1, chunk + steps + 1)
-        logits, _ = model.decode_step(
-            state, torch.as_tensor(prompt, device=dev),
-            torch.arange(chunk, dtype=torch.int32, device=dev))
-        rows = [logits[0].cpu()]
+        max_len = chunk + steps + 1
+        if encodes:
+            with torch.no_grad():
+                enc = model.encode(stub_frames(cfg, seed).to(dev))
+            state = model.init_decode_state(1, max_len, enc_out=enc)
+        else:
+            state = model.init_decode_state(1, max_len)
+        rows = []
+        for a in range(0, chunk, piece):
+            k = min(piece, chunk - a)
+            pos = (torch.arange(a, a + k, dtype=torch.int32, device=dev)
+                   if k > 1 else a)
+            logits, _ = model.decode_step(
+                state, torch.as_tensor(prompt[:, a:a + k], device=dev), pos)
+            rows.append(logits[0].cpu())
         tokens = []
         for i in range(steps + 1):
             tokens.append(int(rows[-1][-1].argmax()))
@@ -1055,11 +1183,143 @@ def model_parity_phase(cfg, device, chunk: int = 16, steps: int = 4,
     if card_tokens != host_tokens:
         raise AssertionError(f"greedy tokens differ: card {card_tokens}, "
                              f"host {host_tokens}")
-    calls = steps + 1
+    calls = -(-chunk // piece) + steps
     if torch.device(device).type == "cuda":
-        _check_launches(launches, cfg, calls, "model parity run")
+        _check_launches(launches, cfg, calls, "model parity run", encodes)
     return {"max_abs_err": err, "logit_scale": scale, "tokens": card_tokens,
             "launches": launches, "calls": calls, "recorded": recorded}
+
+
+# -- phases 22-24 ----------------------------------------------------------
+
+# Each new family's width cut card against host (phase 7's check, with the
+# family's inputs), then one training step's loss and gradients (phase
+# 16's tolerances): (forward text tokens, decode prompt, its prefill
+# pieces, train batch, train sequence).  A vlm's forward and train batch
+# carry its patch prefix (text after the prefix: 64 tokens), an encdec's
+# its 1024 stub frames; the hybrid and encdec families prefill one token a
+# call, as they are served.
+FAMILY_PARITY = {"vlm": (64, 16, None, 1, None),
+                 "hybrid": (16, 16, 1, 1, 32),
+                 "encdec": (16, 4, 1, 1, 64)}
+
+
+def forward_parity(cfg, host, card, device, text: int, seed: int = 0
+                   ) -> dict:
+    """One forward on each side: ``text`` tokens after a vlm's patch
+    prefix, or over an encdec's encoded stub frames (its encoder output
+    compared too); logits within PARITY_RTOL of their scale."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    toks = torch.as_tensor(np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab, size=(1, text), dtype=np.int32))
+    frames = stub_frames(cfg, seed) if cfg.frontend else None
+    out = {}
+    for side, model in (("card", card), ("host", host)):
+        dev = model.device
+        emb = None if frames is None else frames.to(dev)
+        K.reset_launches()
+        with torch.no_grad():
+            logits, _ = model(toks.to(dev), embeds=emb)
+            enc = (model.encode(emb).cpu() if cfg.family == "encdec"
+                   else None)
+        out[side] = (logits.cpu(), enc, dict(K.LAUNCHES))
+    (c_logits, c_enc, launches), (h_logits, h_enc, _) = \
+        out["card"], out["host"]
+    if not bool(torch.isfinite(c_logits).all()):
+        raise AssertionError("non-finite forward logits on the card")
+    res = {"shape": list(c_logits.shape)}
+    for what, c, h in (("forward logits", c_logits, h_logits),
+                       ("encoder output", c_enc, h_enc)):
+        if c is None:
+            continue
+        err, scale = float((c - h).abs().max()), float(h.abs().max())
+        if err > PARITY_RTOL * scale:
+            raise AssertionError(f"{what}: max |card - host| {err} above "
+                                 f"{PARITY_RTOL} x {scale}")
+        key = "max_abs_err" if what == "forward logits" else "encoder_err"
+        res[key] = err
+        res[key.replace("err", "scale").replace("max_abs_", "")] = scale
+    if torch.device(device).type == "cuda":
+        encodes = 2 * int(cfg.family == "encdec")
+        _check_launches(launches, cfg, 1, "forward parity", encodes)
+    res["launches"] = launches
+    return res
+
+
+def grad_parity(cfg, host, card, device, batch: int, seq: int,
+                seed: int = 0) -> dict:
+    """One training step's loss and every gradient (``value_and_grad``,
+    the step function's differentiation) on each side for the same
+    ``data.batch_for_model`` batch (a vlm's and an encdec's with their
+    stub embeds): loss within TRAIN_LOSS_RTOL relative, every gradient
+    within GRAD_TOL of its scale."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import batch_for_model
+    from repro_torch.models import family_module
+    from repro_torch.train.loop import value_and_grad
+    skeleton = family_module(cfg).init(cfg, None, "meta")
+    out = {}
+    for side, model in (("card", card), ("host", host)):
+        dev = model.device
+        b = batch_for_model(cfg, SHAPES["train_4k"], batch_override=batch,
+                            seq_override=seq, step=seed, device=dev)
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        K.reset_launches()
+        loss, _, grads = value_and_grad(skeleton, params, b)
+        out[side] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                     dict(K.LAUNCHES), list(b["tokens"].shape))
+        del grads
+    (c_loss, c_grads, launches, shape), (h_loss, h_grads, _, _) = \
+        out["card"], out["host"]
+    if not abs(c_loss - h_loss) <= TRAIN_LOSS_RTOL * abs(h_loss):
+        raise AssertionError(f"training loss card {c_loss}, host {h_loss}")
+    grad_err = {k: _within_scale(c_grads[k], h_grads[k], GRAD_TOL,
+                                 f"gradient {k}") for k in h_grads}
+    if _on_card(device):
+        _check_launches(launches, cfg, 1, "training step",
+                        int(cfg.family == "encdec"))
+    worst = max(grad_err, key=grad_err.get)
+    return {"loss": [c_loss, h_loss], "worst_grad": [worst, grad_err[worst]],
+            "grad_err": {k: grad_err[k] for k in ("vis_proj",)
+                         if k in grad_err},
+            "launches": launches, "text_shape": shape}
+
+
+def family_parity_phase(cfg, device, seed: int = 0) -> dict:
+    """A vlm, hybrid or encdec config card against host (``FAMILY_PARITY``):
+    a forward, prefill and greedy decode, then one training step."""
+    text, prompt, piece, batch, seq = FAMILY_PARITY[cfg.family]
+    host, card = parity_models(cfg, device, seed)
+    res = {"forward": forward_parity(cfg, host, card, device, text, seed)}
+    res["decode"] = model_parity_phase(cfg, device, chunk=prompt, seed=seed,
+                                       models=(host, card),
+                                       prefill_chunk=piece)
+    res["decode"].pop("recorded")
+    if seq is None:
+        seq = cfg.frontend_tokens + text
+    res["train"] = grad_parity(cfg, host, card, device, batch, seq, seed)
+    return res
+
+
+def prefixed_forward(model, text: int = 64, seed: int = 0) -> dict:
+    """A vlm's forward over its stub patch prefix and ``text`` tokens, on
+    its device: the logits must be finite."""
+    import torch
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(seed)
+    embeds = torch.randn((1, cfg.frontend_tokens, cfg.d_model),
+                         generator=gen).to(model.device)
+    toks = torch.randint(0, cfg.vocab, (1, text), generator=gen)
+    with torch.no_grad():
+        logits, _ = model(toks.to(model.device), embeds=embeds)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits in the prefixed forward")
+    return {"shape": list(logits.shape), "finite": True,
+            "scale": float(logits.abs().max())}
 
 
 # -- phase 19 --------------------------------------------------------------
@@ -1168,17 +1428,20 @@ def check_phase_times(trace, tree, phases) -> None:
 
 
 def serve_phase(argv, device, spool_dir: str | None = None,
-                watch_interval: float | None = None) -> dict:
+                watch_interval: float | None = None, after=None) -> dict:
     """Serve the traffic through ``repro_torch.launch.serve`` with launch
-    counts from 0; every model call must have launched 2L+1 RMSNorms and L
-    attentions or WKV-6s (``launches_per_call``), the peak device memory
-    must fit the card, every request must complete with its tokens in the
-    vocabulary, and the saved serving trace, analyzed on the kernel lane
-    and on the numpy lane, must give equal verdict docs.
+    counts from 0; every model call must have launched its
+    ``launches_per_call`` (and every encdec encode its
+    ``launches_per_encode``), the peak device memory must fit the card,
+    every request must complete with its tokens in the vocabulary, and the
+    saved serving trace, analyzed on the kernel lane and on the numpy
+    lane, must give equal verdict docs.
 
     With ``spool_dir`` the server also spools its steps there while a
     child process tails the spool live (``LiveTail``); the result's
-    ``live`` holds what the tail saw."""
+    ``live`` holds what the tail saw.  ``after(backend)``, run last, puts
+    its result under ``after`` (the served model is freed when the phase
+    returns)."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.core import AutoAnalyzer, RegionTrace, tree_from_schema
@@ -1214,9 +1477,10 @@ def serve_phase(argv, device, spool_dir: str | None = None,
         trace = RegionTrace.load(path)
         live = (None if tail is None else
                 tail.check(path, step_times[-1], device, tmp))
-    cfg, calls = backend.cfg, backend.model_calls
+    cfg, calls, encodes = backend.cfg, backend.model_calls, \
+        backend.encode_calls
     if on_card:
-        _check_launches(launches, cfg, calls, "serving")
+        _check_launches(launches, cfg, calls, "serving", encodes)
         total = torch.cuda.get_device_properties(0).total_memory
         if peak > total:
             raise AssertionError(f"peak device memory {peak} above the "
@@ -1250,12 +1514,14 @@ def serve_phase(argv, device, spool_dir: str | None = None,
             "cpu_clock": (trace.meta.get("cpu_clock"),
                           trace.meta.get("cpu_tick")),
             "breakdown": decode_breakdown(backend) if on_card else None,
-            "model_calls": calls, "launches": launches,
+            "model_calls": calls, "encode_calls": encodes,
+            "launches": launches,
             "max_memory_allocated": peak, "verdict": doc_n,
             "analysis_launches": analysis_launches,
             "seed_counts": seed_counts, "decisions": dict(an_k.decisions),
             "trace_shape": [trace.n_steps, trace.n_processes,
-                            len(trace.region_ids)], "live": live}
+                            len(trace.region_ids)], "live": live,
+            "after": None if after is None else after(backend)}
 
 
 # The window line the watch command prints as it judges each window.
@@ -1402,7 +1668,7 @@ def decode_breakdown(backend,
     ``PROFILE_TRIES`` windows in all; the last must agree."""
     import torch
     api, model, k = backend.api, backend.model, backend.prefill_chunk
-    state = api.init_decode_state(1, backend.max_len)
+    state = backend.fresh_state()
     logits, _ = api.decode_step(
         model, state, torch.zeros((1, k), dtype=torch.int32,
                                   device=backend.device),
@@ -1419,7 +1685,8 @@ def decode_breakdown(backend,
     busy = sum(r[0] for r in rows) / 1e6
     profiled = profile_complete(rows, launched)
     sc = symbol_counts(rows)
-    check_decode_symbols(sc["counts"], launched)
+    check_decode_symbols(sc["counts"], launched,
+                         decode_symbols(backend.cfg, backend.max_len))
     times = sc["times"]
     ported = {n: sum(times.get(sym, 0.0) for sym in _symbols(n)) / steps
               / 1e3 for n, c in launched.items() if c}
@@ -1507,11 +1774,37 @@ def _profiled_launches(rows, launched: dict) -> tuple:
     return {n: c for n, c in profiled.items() if c}, lost
 
 
-def check_decode_symbols(counts: dict, launched: dict) -> None:
-    """Every launch of a kernel in DECODE_SYMBOLS over decode calls went
+def decode_symbols(cfg, max_len: int) -> dict:
+    """``DECODE_SYMBOLS`` for a served model's decode call: the attention
+    entry kernel is the path ``attention_plan`` picks for the call's bf16
+    shapes (one token over the cache's slots, and an encdec's over its
+    cross frames too): split-K for at most DECODE_ROWS query rows per kv
+    head, ``wgmma`` above (recurrentgemma-9b's MQA packs 16)."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_plan
+    if cfg.family == "ssm":
+        return dict(DECODE_SYMBOLS)
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.mla is not None:    # q and k at nope + rope over H kv heads
+        KV, dh = H, cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+    keys = [max_len if cfg.window is None else min(max_len, cfg.window)]
+    if cfg.family == "encdec":
+        keys.append(cfg.frontend_tokens)
+    paths = {attention_plan(1, 1, H, KV, dh, K, torch.bfloat16).path
+             for K in keys}
+    if len(paths) != 1:
+        raise AssertionError(f"{cfg.name}'s decode attentions take the "
+                             f"paths {paths}")
+    return {**DECODE_SYMBOLS,
+            "flash_attention": f"flash_attention_{paths.pop()}_kernel"}
+
+
+def check_decode_symbols(counts: dict, launched: dict,
+                         symbols: dict = DECODE_SYMBOLS) -> None:
+    """Every launch of a kernel in ``symbols`` over decode calls went
     through its decode entry kernel (``counts``: profiled launches per
     CUDA symbol; ``launched``: the launch counter's delta)."""
-    for name, sym in DECODE_SYMBOLS.items():
+    for name, sym in symbols.items():
         if launched.get(name) and counts.get(sym, 0) != launched[name]:
             theirs = {s: c for s, c in counts.items() if s in _symbols(name)}
             raise AssertionError(
@@ -2151,50 +2444,38 @@ def train_parity_phase(cfg, device, batch: int = 2, seq: int = 256,
                        steps: int = TRAIN_PARITY_STEPS,
                        seed: int = 0) -> dict:
     """Seeded weights on the host and a copy on ``device``: the loss and
-    every gradient of one step, then the losses of ``steps`` AdamW steps,
-    on each; on the card every forward launches 2L+1 RMSNorms and L
-    attentions."""
-    import torch
+    every gradient of one step (:func:`grad_parity`), then the losses of
+    ``steps`` + 1 AdamW steps, on each; on the card every forward
+    launches its ``launches_per_call``."""
     from repro_torch import kernels as K
     from repro_torch.data import DataConfig, host_batch, to_device
-    from repro_torch.models import transformer
     from repro_torch.optim import AdamWConfig, init_opt_state
-    from repro_torch.train.loop import make_train_step, value_and_grad
-    host = {k: p.detach() for k, p in
-            transformer.init(cfg, seed, "cpu").named_parameters()}
+    from repro_torch.train.loop import make_train_step
+    host, card = parity_models(cfg, device, seed)
+    res = grad_parity(cfg, host, card, device, batch, seq)
     dcfg = DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab)
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=20)
-    skeleton = transformer.Transformer(cfg, "meta", seed=None)
-    out = {}
-    for side, dev in (("card", device), ("host", "cpu")):
-        params = {k: t.to(dev) for k, t in host.items()}
+    losses, launches = {}, {}
+    for side, model in (("card", card), ("host", host)):
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        step, opt = make_train_step(cfg, opt_cfg), init_opt_state(params)
         K.reset_launches()
-        loss, _, grads = value_and_grad(
-            skeleton, params, to_device(host_batch(dcfg, 0), dev))
-        step = make_train_step(cfg, opt_cfg)
-        opt = init_opt_state(params)
-        losses = []
+        losses[side] = []
         for s in range(steps + 1):
-            params, opt, m = step(params, opt,
-                                  to_device(host_batch(dcfg, s), dev))
-            losses.append(float(m["loss"]))
-        out[side] = (float(loss), {k: g.cpu() for k, g in grads.items()},
-                     losses, dict(K.LAUNCHES))
-    (c_loss, c_grads, c_losses, launches), (h_loss, h_grads, h_losses, _) = \
-        out["card"], out["host"]
-    if not abs(c_loss - h_loss) <= TRAIN_LOSS_RTOL * abs(h_loss):
-        raise AssertionError(f"training loss card {c_loss}, host {h_loss}")
-    grad_err = {k: _within_scale(c_grads[k], h_grads[k], GRAD_TOL,
-                                 f"gradient {k}") for k in h_grads}
-    for a, b in zip(c_losses, h_losses):
+            params, opt, m = step(params, opt, to_device(
+                host_batch(dcfg, s), model.device))
+            losses[side].append(float(m["loss"]))
+        launches[side] = dict(K.LAUNCHES)
+    for a, b in zip(losses["card"], losses["host"]):
         if not abs(a - b) <= TRAIN_TRAJ_RTOL * abs(b):
-            raise AssertionError(f"AdamW losses card {c_losses}, host "
-                                 f"{h_losses}")
+            raise AssertionError(f"AdamW losses card {losses['card']}, host "
+                                 f"{losses['host']}")
     if _on_card(device):
-        _check_launches(launches, cfg, steps + 2, "training parity")
-    worst = max(grad_err, key=grad_err.get)
-    return {"loss": [c_loss, h_loss], "losses": [c_losses, h_losses],
-            "worst_grad": [worst, grad_err[worst]], "launches": launches,
+        _check_launches(launches["card"], cfg, steps + 1, "training parity")
+    return {"loss": res["loss"], "losses": [losses["card"], losses["host"]],
+            "worst_grad": res["worst_grad"],
+            "launches": {k: n + res["launches"][k]
+                         for k, n in launches["card"].items()},
             "forwards": steps + 2}
 
 
@@ -2425,6 +2706,56 @@ MOE_TRAIN_ARCHS = ("mixtral-8x22b", "deepseek-v2-lite-16b")
 MOE_TRAIN_SEQ = 64
 MOE_ENTRIES = ("train/moe-routing-collapse-smoke",
                "train/moe-collapse-rebalance-recovery")
+
+
+# The last three families, served FULL in bf16: the vlm with phase 8's
+# traffic, the hybrid and the encdec (one token per call) with phase 11's.
+PHI3V, RGEMMA, SEAMLESS = ("phi-3-vision-4.2b", "recurrentgemma-9b",
+                           "seamless-m4t-medium")
+PHI3V_SERVE_ARGV = ("--arch", PHI3V, *SERVE_ARGV[2:])
+RGEMMA_SERVE_ARGV = ("--arch", RGEMMA, *RWKV_SERVE_ARGV[2:])
+SEAMLESS_SERVE_ARGV = ("--arch", SEAMLESS, *RWKV_SERVE_ARGV[2:])
+
+
+def log_family_parity(phase: str, cfg, res: dict, wall: float) -> None:
+    f, d, t = res["forward"], res["decode"], res["train"]
+    enc = (f"; encoder output max|card-host| {f['encoder_err']:.6g} of "
+           f"scale {f['encoder_scale']:.6g}" if "encoder_err" in f else "")
+    enc_layers = (f" (+{cfg.n_encoder_layers} encoder)"
+                  if cfg.n_encoder_layers else "")
+    log(f"[{phase}] {cfg.name} width, {cfg.n_layers} layers{enc_layers}"
+        f", f32: forward logits {f['shape']} max|card-host| "
+        f"{f['max_abs_err']:.6g} of scale {f['scale']:.6g}{enc} "
+        f"(tolerance {PARITY_RTOL} x scale); decode max|card-host| "
+        f"{d['max_abs_err']:.6g} of scale {d['logit_scale']:.6g}, greedy "
+        f"tokens equal {d['tokens']}; card launches forward "
+        f"{f['launches']}, decode {d['launches']} over {d['calls']} calls")
+    log(f"[{phase}] one training step at tokens {t['text_shape']}: loss "
+        f"{t['loss']} (tolerance {TRAIN_LOSS_RTOL} relative), worst gradient "
+        f"over its scale {t['worst_grad']} (tolerance {GRAD_TOL}) "
+        f"{t['grad_err']}; card launches {t['launches']}; "
+        f"{wall:.1f} s")
+
+
+def log_served(phase: str, argv, res: dict) -> None:
+    log(f"[{phase}] serve {' '.join(argv)}: {json.dumps(res['summary'])}")
+    from repro_torch.configs import get_arch
+    cfg = get_arch(argv[1]).full
+    per = launches_per_call(cfg)
+    if cfg.family == "encdec":
+        per = f"{per} per call and {launches_per_encode(cfg)} per encode"
+    log(f"[{phase}] {res['model_calls']} model calls and "
+        f"{res['encode_calls']} encodes, launches {res['launches']} (= "
+        f"{per}); "
+        f"max_memory_allocated {res['max_memory_allocated']} bytes; phase "
+        f"wall {res['wall_s']:.1f} s (model init included); trace (steps, "
+        f"lanes, regions) {res['trace_shape']}; CPU clock (name, tick s) "
+        f"{res['cpu_clock']}")
+    log_breakdown(phase, res["breakdown"])
+    log(f"[{phase}] verdict, equal on the kernel and numpy lanes "
+        f"({res['analysis_launches']} seed-row launches, by seed count k "
+        f"{res['seed_counts']}; re-decided {res['decisions']}): "
+        f"{json.dumps(res['verdict'], sort_keys=True)}")
 
 
 # -- driver ----------------------------------------------------------------
@@ -2830,6 +3161,38 @@ def main() -> int:
         f"k {moee['seed_counts']}; re-decided {moee['decisions']})")
     log(f"[21] runs: {json.dumps(moee['runs'])}")
 
+    # 22. the vlm: phi-3-vision-4.2b's width cut card vs host, then FULL
+    # served, then a FULL forward over the patch prefix
+    t0 = time.perf_counter()
+    vparity = family_parity_phase(parity_config(PHI3V), "cuda")
+    log_family_parity("22", parity_config(PHI3V), vparity,
+                      time.perf_counter() - t0)
+    vserved = serve_phase(PHI3V_SERVE_ARGV, "cuda",
+                          after=lambda b: prefixed_forward(b.model, 64))
+    log_served("22", PHI3V_SERVE_ARGV, vserved)
+    log(f"[22] phi-3-vision-4.2b FULL bf16 forward over its "
+        f"{vserved['after']['shape'][1] - 64}-patch prefix and 64 tokens: "
+        f"logits {vserved['after']['shape']} finite, max |logit| "
+        f"{vserved['after']['scale']:.6g}")
+
+    # 23. the hybrid: recurrentgemma-9b's width cut to one (rec, rec, attn)
+    # block and a (rec, rec) tail, card vs host, then FULL served
+    t0 = time.perf_counter()
+    hcfg = parity_config(RGEMMA, n_layers=5)
+    hparity = family_parity_phase(hcfg, "cuda")
+    log_family_parity("23", hcfg, hparity, time.perf_counter() - t0)
+    hserved = serve_phase(RGEMMA_SERVE_ARGV, "cuda")
+    log_served("23", RGEMMA_SERVE_ARGV, hserved)
+
+    # 24. the encdec: seamless-m4t-medium's width cut to 2 + 2 layers,
+    # card vs host, then FULL served, each request encoding its frames
+    t0 = time.perf_counter()
+    eparity = family_parity_phase(parity_config(SEAMLESS), "cuda")
+    log_family_parity("24", parity_config(SEAMLESS), eparity,
+                      time.perf_counter() - t0)
+    eserved = serve_phase(SEAMLESS_SERVE_ARGV, "cuda")
+    log_served("24", SEAMLESS_SERVE_ARGV, eserved)
+
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
         "name": "multi_seed_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2858,7 +3221,10 @@ def main() -> int:
                         "train_trace": traced["seed_counts"],
                         "new_entries": newe["seed_counts"],
                         "serve_deepseek": dserved["seed_counts"],
-                        "moe_entries": moee["seed_counts"]},
+                        "moe_entries": moee["seed_counts"],
+                        "serve_phi3v": vserved["seed_counts"],
+                        "serve_rgemma": hserved["seed_counts"],
+                        "serve_seamless": eserved["seed_counts"]},
         "decisions": {"corpus": corpus["decisions"],
                       "fleet": fleet["decisions"],
                       "serve_gemma": served["decisions"],
@@ -2870,7 +3236,10 @@ def main() -> int:
                       "train_trace": traced["decisions"],
                       "new_entries": newe["decisions"],
                       "serve_deepseek": dserved["decisions"],
-                      "moe_entries": moee["decisions"]},
+                      "moe_entries": moee["decisions"],
+                      "serve_phi3v": vserved["decisions"],
+                      "serve_rgemma": hserved["decisions"],
+                      "serve_seamless": eserved["decisions"]},
     }]
     for name, errs, times, main, prefill, shape in (
             ("rmsnorm", rms_err, rms_t, RMS_MAIN, RMS_PREFILL, list),
@@ -2918,6 +3287,13 @@ def main() -> int:
     rms["launches_deepseek_serve"] = dserved["launches"]["rmsnorm"]
     rms["deepseek"] = {f"{n}x{d}": rms_t[(n, d)]
                        for n, d in (RMS_DSV2, RMS_DSV2_PREFILL)}
+    rms["families"] = {f"{n}x{d}": rms_t[(n, d)] for n, d in RMS_FAMILIES}
+    attn["families"] = {name: {"shape": attention_shape(name),
+                               **attn_t[name]} for name in ATTN_FAMILIES}
+    for tag, res in (("phi3v", vserved), ("rgemma", hserved),
+                     ("seamless", eserved)):
+        for kd in (rms, attn):
+            kd[f"launches_{tag}_serve"] = res["launches"][kd["name"]]
     t = wkv_t[WKV_MAIN]
     kernels.append({
         "name": "wkv6", "route": "cuda",

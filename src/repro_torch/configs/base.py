@@ -1,14 +1,10 @@
 """Model configs (copied from the reference ``repro.configs`` and held
 equal to it by tests/test_torch_configs_scenarios.py).
 
-Each architecture the port uses provides a module
-``repro_torch.configs.<id>`` with ``FULL`` (the exact published config)
-and ``SMOKE`` (a reduced same-family config).  Here are the four whose
-smoke configs ``scenarios.corpus.model_region_tree`` builds region trees
-from, the serving launcher's default ``st-100m``, two dense GQA
-architectures the model tests reach (``mistral-nemo-12b``, and
-``h2o-danube-3-4b`` with its sliding window), and the ssm family's
-``rwkv6-3b``.  Dtypes are kept as strings;
+Each architecture provides a module ``repro_torch.configs.<id>`` with
+``FULL`` (the exact published config) and ``SMOKE`` (a reduced
+same-family config): all eleven of the reference's, one or more of every
+family (dense, moe, ssm, vlm, hybrid, encdec).  Dtypes are kept as strings;
 :meth:`ModelConfig.activation_dtype` and :meth:`ModelConfig.parameter_dtype`
 turn them into torch dtypes.
 """
@@ -171,6 +167,12 @@ class ModelConfig:
             n_rec = sum(1 for i in range(self.n_layers)
                         if r.block_pattern[i % len(r.block_pattern)] == "rec")
             n_att = self.n_layers - n_rec
+            # Kept equal to the reference's count, which has three d x lru
+            # matrices a recurrent block where the block has w_in, w_out,
+            # w_a and w_x: 8,523,935,744 for recurrentgemma-9b against
+            # 8,959,881,216 real parameters.  The vlm count also leaves out
+            # vis_proj (d x d).  serve/runtime.py counts weight bytes from
+            # the model.
             rec_p = 2 * d * lru + lru * d + 2 * lru + r.conv_width * lru + 2 * d
             att_p = attn_params() + 2 * d
             mlp_p = mlp_params(self.d_ff) + d
@@ -184,6 +186,39 @@ class ModelConfig:
         mo = self.moe
         inactive = (mo.n_experts - mo.top_k) * 3 * self.d_model * mo.d_ff
         return self.param_count() - self.n_layers * inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: only the ssm and hybrid
+# families take it.
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shapes_for(cfg: ModelConfig) -> List[InputShape]:
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.family in LONG_CONTEXT_FAMILIES:
+        out.append(SHAPES["long_500k"])
+    return out
 
 
 _REGISTRY: Dict[str, "ArchEntry"] = {}
@@ -216,7 +251,8 @@ def list_archs() -> List[str]:
 
 _ARCH_MODULES = ["chatglm3_6b", "h2o_danube3_4b", "mistral_nemo_12b",
                  "gemma_7b", "deepseek_v2_lite", "mixtral_8x22b", "rwkv6_3b",
-                 "st_synthetic"]
+                 "phi3_vision_4_2b", "recurrentgemma_9b",
+                 "seamless_m4t_medium", "st_synthetic"]
 
 _loaded = False
 

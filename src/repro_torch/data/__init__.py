@@ -1,8 +1,6 @@
-"""The synthetic token pipeline (the reference's ``repro.data``, without
-``batch_for_model``, which waits for the input-shape table: ROADMAP.md
-queue 1, item 5)."""
-from .pipeline import (DataConfig, batch_iterator, device_batch, host_batch,
-                       to_device)
+"""The synthetic token pipeline (the reference's ``repro.data``)."""
+from .pipeline import (DataConfig, batch_for_model, batch_iterator,
+                       device_batch, host_batch, to_device)
 
-__all__ = ["DataConfig", "batch_iterator", "device_batch", "host_batch",
-           "to_device"]
+__all__ = ["DataConfig", "batch_for_model", "batch_iterator", "device_batch",
+           "host_batch", "to_device"]

@@ -9,6 +9,10 @@ Deterministic token streams per (step, shard) let any process of a
 multi-host job materialise exactly its shard without coordination — the
 property that makes checkpoint-restart and elastic re-meshing trivial (the
 stream is addressed by global step, not by an iterator cursor).
+:func:`batch_for_model` adds the stub frontends' embeddings for the vlm
+and encdec families, drawn from a ``torch.Generator`` seeded with the
+step (the reference draws them with ``jax.random``, so only their shapes
+and dtypes match the reference's).
 
 ``skew`` injects per-shard load imbalance (padding fraction) used by the
 AutoAnalyzer dissimilarity demos (the paper's ST scenario).
@@ -21,6 +25,7 @@ from typing import Dict, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 
 
@@ -84,3 +89,32 @@ def batch_iterator(cfg: DataConfig, start_step: int = 0,
     while True:
         yield device_batch(cfg, step, device)
         step += 1
+
+
+def batch_for_model(model_cfg: ModelConfig, shape: InputShape,
+                    batch_override: Optional[int] = None,
+                    seq_override: Optional[int] = None, step: int = 0,
+                    device: Union[None, str, torch.device] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """A concrete batch matching a model config's inputs, as tensors on
+    ``device`` (None: the card).  Tokens, labels and mask are
+    :func:`host_batch`'s; a vlm or encdec config with a frontend adds
+    ``embeds`` (B, frontend_tokens, d) in its activation dtype, drawn in
+    float32 on the host from a generator seeded with ``step`` (the same
+    values on every device), and a vlm's text is cut to the rest of the
+    sequence, ``max(S - frontend_tokens, 2)`` tokens."""
+    B = batch_override or shape.global_batch
+    S = seq_override or shape.seq_len
+    dcfg = DataConfig(seq_len=S, global_batch=B, vocab=model_cfg.vocab)
+    b = to_device(host_batch(dcfg, step), resolve_device(device))
+    if model_cfg.family in ("vlm", "encdec", "audio") and model_cfg.frontend:
+        P = model_cfg.frontend_tokens
+        gen = torch.Generator().manual_seed(step)
+        b["embeds"] = torch.randn((B, P, model_cfg.d_model), generator=gen
+                                  ).to(b["tokens"].device,
+                                       model_cfg.activation_dtype())
+        if model_cfg.family == "vlm":
+            S_text = max(S - P, 2)
+            for k in ("tokens", "labels", "mask"):
+                b[k] = b[k][:, :S_text].contiguous()
+    return b

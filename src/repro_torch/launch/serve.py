@@ -23,13 +23,18 @@ process tails while the server runs::
         --smoke --device cpu
 
 deepseek-v2-lite-16b (MLA and 64 routed experts, 32.4 GB of bf16
-weights) serves at full width on one 80 GB card.
+weights), phi-3-vision-4.2b (vlm: text only, as the reference serves it),
+recurrentgemma-9b (hybrid: RG-LRU and local MQA, one token per call) and
+seamless-m4t-medium (encdec: each request's 1024 stub frames encoded when
+it arrives) serve at full width on one 80 GB card.
 The model runs on the card (its RMSNorm and attention or WKV-6 through
 the hand-written CUDA kernels) unless ``--device cpu`` asks for the
 kernels' plain versions on the host; without a card the default fails.
-Families without multi-token cache writes (rwkv6-3b's ssm) clamp
+Families without multi-token cache writes (ssm, hybrid, encdec) clamp
 ``--chunk`` to 1, as the reference does.  Weights are random, drawn from
-a ``torch.Generator`` seeded with ``--seed``.
+a ``torch.Generator`` seeded with ``--seed``; so are the vlm's and the
+encdec's stub frames, a request's from ``seed * 131 + rid`` (the
+reference draws them with ``jax.random``).
 Reported throughput excludes the warmup (one untimed call per
 steady-state shape before the timed section) and splits prefill from
 decode: each phase's tokens over that phase's own region wall.
@@ -39,7 +44,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from typing import Tuple
+from typing import Callable, Optional, Tuple
+
+import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.models import build
@@ -83,6 +90,22 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def embeds_fn_for(cfg, seed: int, device
+                  ) -> Optional[Callable[..., torch.Tensor]]:
+    """The stub frontend's frames of a request (vlm and encdec configs
+    with a frontend; None for the others): (1, frontend_tokens, d)
+    float32, drawn on the host from a generator seeded with ``seed * 131 +
+    rid`` and moved to ``device``."""
+    if cfg.family not in ("encdec", "vlm") or not cfg.frontend:
+        return None
+
+    def embeds_fn(req) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(seed * 131 + req.rid)
+        return torch.randn((1, cfg.frontend_tokens, cfg.d_model),
+                           generator=gen).to(device)
+    return embeds_fn
+
+
 def run(args: argparse.Namespace, step_hook=None
         ) -> Tuple[ServeEngine, TorchBackend]:
     """Build the model and the traffic, serve it, finalize the trace.
@@ -107,7 +130,9 @@ def run(args: argparse.Namespace, step_hook=None
 
     backend = TorchBackend(cfg, api, model, lanes=args.lanes,
                            max_len=max_len, prefill_chunk=chunk,
-                           seed=args.seed)
+                           seed=args.seed,
+                           embeds_fn=embeds_fn_for(cfg, args.seed,
+                                                   api.device))
     engine = ServeEngine(
         ServeConfig(lanes=args.lanes, max_len=max_len, prefill_chunk=chunk,
                     trace_path=args.trace, trace_spool_dir=args.spool_dir),

@@ -1,5 +1,4 @@
-"""Shared model layers of the dense, moe and ssm families, as plain
-functions on tensors.
+"""Shared model layers, as plain functions on tensors.
 
 The twin of the reference's ``repro.models.layers`` (its norms, rope,
 attention, MLA, MLP, embedding and loss).  The norm and the attention call
@@ -138,16 +137,29 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor,
-              angles: Tuple[torch.Tensor, torch.Tensor],
-              cache: Optional[Dict[str, object]] = None) -> torch.Tensor:
+              angles: Optional[Tuple[torch.Tensor, torch.Tensor]],
+              cache: Optional[Dict[str, object]] = None,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]] = None
+              ) -> torch.Tensor:
     """Attention sub-layer: projections, rope, the attention kernel and,
     with ``cache``, the ring-buffer KV cache.
 
     x (B, S, d); positions (S,) int32; ``angles`` as in
     :func:`apply_rope`.  The cache's buffers and ``idx`` are updated in
-    place (the reference returns a new cache).  Returns (B, S, d).
+    place (the reference returns a new cache).  ``kv_override`` (k, v,
+    k_positions) is cross-attention: k and v come from it as they are, q
+    is not roped either (``angles`` is unused), and the call is
+    non-causal with no window whatever ``cfg`` says, as in the reference.
+    Returns (B, S, d).
     """
-    q = apply_rope(_project(x, p["wq"]), angles, cfg)
+    q = _project(x, p["wq"])
+    if kv_override is not None:
+        k, v, k_pos = kv_override
+        out = _attend(q, k, v, positions, k_pos, causal=False, window=None,
+                      softcap=cfg.attn_logit_softcap)
+        return _out_project(out, p["wo"])
+    q = apply_rope(q, angles, cfg)
     k = apply_rope(_project(x, p["wk"]), angles, cfg)
     v = _project(x, p["wv"])
     k_pos = positions
@@ -160,23 +172,23 @@ def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         cache["pos"][start:start + S] = positions.to(torch.int32)
         cache["idx"] += S
         k, v, k_pos = ck, cv, cache["pos"]
-    out = _attend(cfg, q, k, v, positions, k_pos)
+    out = _attend(q, k, v, positions, k_pos, causal=cfg.causal,
+                  window=cfg.window, softcap=cfg.attn_logit_softcap)
     return _out_project(out, p["wo"])
 
 
-def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, q_pos: torch.Tensor,
-            k_pos: torch.Tensor) -> torch.Tensor:
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+            window: Optional[int], softcap: Optional[float]) -> torch.Tensor:
     """The attention kernel (its autograd Function where a gradient is
     needed) on contiguous q, k, v and int32 positions."""
     args = (q.contiguous(), k.contiguous(), v.contiguous(),
             q_pos.to(torch.int32).contiguous(),
             k_pos.to(torch.int32).contiguous())
     if _differentiable(*args[:3]):
-        return FlashAttentionFunction.apply(*args, cfg.causal, cfg.window,
-                                            cfg.attn_logit_softcap)
-    return flash_attention(*args, causal=cfg.causal, window=cfg.window,
-                           softcap=cfg.attn_logit_softcap)
+        return FlashAttentionFunction.apply(*args, causal, window, softcap)
+    return flash_attention(*args, causal=causal, window=window,
+                           softcap=softcap)
 
 
 def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -255,7 +267,8 @@ def mla_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         *k_nope.shape[:2], H, m.rope_head_dim)], dim=-1)
     q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
     v_p = F.pad(v, (0, q_full.shape[-1] - v.shape[-1]))
-    out = _attend(cfg, q_full, k_full, v_p, positions, k_pos)
+    out = _attend(q_full, k_full, v_p, positions, k_pos, causal=cfg.causal,
+                  window=cfg.window, softcap=cfg.attn_logit_softcap)
     return _out_project(out[..., :m.v_head_dim], p["wo"])
 
 

@@ -6,10 +6,13 @@ through the port's model on its device: per-lane batch-1 decode states
 (the KV cache's ring index is shared across a batch, so lanes at
 different positions cannot share one batched state) and true chunked
 prefill on the families whose attention cache accepts S > 1 writes
-(``supports_chunk``: the dense and moe families here), one token per
-call on the others (the ssm family here).  On the card every model call
-goes through the hand-written kernels: RMSNorm, and attention (dense,
-moe, MLA) or WKV-6 (ssm).
+(``supports_chunk``: the dense-block families), one token per call on
+the others (ssm, hybrid, encdec).  An encdec request is encoded once, when
+it arrives, from the frames ``embeds_fn(request)`` gives, outside any
+timed region, as the reference does; the other families take no frames
+(the reference's serving gives a vlm no images).  On the card every model
+call goes through the hand-written kernels: RMSNorm, and attention (every
+family but ssm, MLA included) or WKV-6 (ssm).
 
 Measurement follows the reference: perf_counter walls around each call,
 ended by ``torch.cuda.synchronize`` on the card (the reference's
@@ -21,7 +24,9 @@ analytic count of the model (:func:`call_costs`) in place of the
 reference's HLO cost analysis: a FLOP counter cannot see a kernel called
 through ctypes.  :meth:`TorchBackend.warmup` makes one untimed call per
 steady-state shape, ``(1, chunk)`` and ``(1, 1)`` (the train corpus
-``warmup=1`` convention).
+``warmup=1`` convention); for encdec on a state encoded from zero frames
+(the reference skips the warmup there only because it compiles a decode
+call per encoded state).
 
 ``kv_append`` records quantities rather than time: the KV write happens
 inside the model call, so the region carries the appended bytes
@@ -42,7 +47,8 @@ from repro_torch.core import (BYTES, CPU_TIME, FLOPS, RAW_METRICS,
                               VMEM_PRESSURE, WALL_TIME)
 from repro_torch.core.collector import _pick_cpu_clock
 from repro_torch.core.trace import RegionTrace
-from repro_torch.models import ModelApi, moe, rwkv
+from repro_torch.models import ModelApi, moe, rglru, rwkv
+from repro_torch.models.transformer import hybrid_pattern
 from repro_torch.scenarios.traffic import prompt_tokens
 
 from .engine import DECODE, KV_APPEND, PREFILL, SAMPLE, LaneEvent, \
@@ -57,8 +63,8 @@ def supports_chunk(cfg) -> bool:
     return cfg.family in CHUNK_FAMILIES
 
 
-def call_costs(cfg, tokens: int, cache_slots: int,
-               weight_bytes: int) -> Tuple[float, float]:
+def call_costs(cfg, tokens: int, cache_slots: int, weight_bytes: int,
+               enc_len: int = 0) -> Tuple[float, float]:
     """Analytic (flops, bytes) of one batch-1 model call on ``tokens``
     tokens against a ``cache_slots``-slot KV cache, with ``weight_bytes``
     the bytes of the model's parameters (each read once per call).
@@ -103,6 +109,29 @@ def call_costs(cfg, tokens: int, cache_slots: int,
 
     The recurrence is counted as the kernel computes it, 7·dh² per (token,
     head); the function needs 5·dh² (chip_smoke.py's bound counts that).
+    The hybrid family (L_r RG-LRU sublayers of width w and conv width c,
+    L_a attention sublayers, an MLP in each of the L):
+
+        flops = 2·S·L_r·(2·d·w + 2·w²)            w_in, w_out; w_a, w_x
+              + 2·S·L_r·c·w + 2·S·L_r·w           the conv; the recurrence
+              + L_a·(the attention term above) + 2·S·L·3·d·ff + 2·S·d·V
+        bytes = weight_bytes + the L_a layers' KV cache read and written
+              + 2·L_r·((c − 1)·w·a + 4·w)         conv carry, float32 h
+              + 4·S·V
+
+    The encdec family's decoder call (its L layers each a causal
+    self-attention over K slots and a cross-attention over T_enc =
+    ``enc_len`` frames whose K/V were computed at the request's encode):
+
+        flops = L·(the attention term above                 self-attention
+                   + 2·S·(d·H·dh + H·dh·d) + 4·S·T_enc·H·dh  wq, wo; cross
+                   + 2·S·3·d·ff) + 2·S·d·V
+        bytes = weight_bytes + the self-attention cache read and written
+              + 2·L·T_enc·KV·dh·a                 the cross K/V read
+              + 4·S·V
+
+    with ``weight_bytes`` the decoder's weights and the embedding only
+    (:func:`decode_weight_bytes`).
     Norms, rope, the dispatch and elementwise work are left out.  These
     are not expected to equal the reference's numbers, which come from
     XLA's cost analysis of the compiled program.
@@ -131,17 +160,50 @@ def call_costs(cfg, tokens: int, cache_slots: int,
     else:
         attn = (2 * S * (d * H * dh + 2 * d * KV * dh + H * dh * d)
                 + 4 * S * K * H * dh)
-        cache = 2 * L * K * KV * dh * a + 2 * L * S * KV * dh * a
+        cache = L * (2 * K * KV * dh * a + 2 * S * KV * dh * a)
+    mlp = 2 * S * 3 * d * ff
+    if cfg.family == "hybrid":
+        n_blocks, tail = hybrid_pattern(cfg)
+        kinds = list(cfg.recurrent.block_pattern) * n_blocks + list(tail)
+        n_rec = kinds.count("rec")
+        n_att = L - n_rec
+        w, c = rglru.width(cfg), cfg.recurrent.conv_width
+        rec = 2 * S * (2 * d * w + 2 * w * w) + 2 * S * c * w + 2 * S * w
+        flops = n_rec * rec + n_att * attn + L * mlp + 2 * S * d * V
+        nbytes = (weight_bytes + cache // L * n_att   # attention layers only
+                  + 2 * n_rec * ((c - 1) * w * a + 4 * w) + 4 * S * V)
+        return float(flops), float(nbytes)
+    if cfg.family == "encdec":
+        cross = 2 * S * (d * H * dh + H * dh * d) + 4 * S * enc_len * H * dh
+        flops = L * (attn + cross + mlp) + 2 * S * d * V
+        nbytes = (weight_bytes + cache + 2 * L * enc_len * KV * dh * a
+                  + 4 * S * V)
+        return float(flops), float(nbytes)
     if cfg.moe is not None:
         mo = cfg.moe
         f, E = mo.d_ff, mo.n_experts
         ffn = (2 * S * d * E + 3 * 2 * E * moe.capacity_of(cfg, S) * d * f
                + 3 * 2 * S * d * f * mo.n_shared)
     else:
-        ffn = 2 * S * 3 * d * ff
+        ffn = mlp
     flops = L * (attn + ffn) + 2 * S * d * V
     nbytes = weight_bytes + cache + 4 * S * V
     return float(flops), float(nbytes)
+
+
+def decode_weight_bytes(cfg, model: torch.nn.Module) -> int:
+    """Bytes of the parameters one decode call reads: all of them but the
+    vlm's ``vis_proj`` (serving takes no images) and, for the encdec
+    family, the encoder's and the cross-attention's ``wk`` and ``wv``
+    (read once a request, at its encode).  Counted from the model:
+    ``cfg.param_count()`` under-counts the ssm and hybrid families and
+    leaves out ``vis_proj``, as the reference's does."""
+    def read(name: str) -> bool:
+        return name != "vis_proj" and (cfg.family != "encdec" or not (
+            name.startswith("enc_") or ".cross_attn.wk" in name
+            or ".cross_attn.wv" in name))
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters() if read(name))
 
 
 def sample_costs(cfg) -> Tuple[float, float]:
@@ -158,11 +220,15 @@ class TorchBackend:
 
     def __init__(self, cfg, api: ModelApi, model: torch.nn.Module,
                  lanes: int, max_len: int, prefill_chunk: int,
-                 seed: int = 0):
+                 seed: int = 0,
+                 embeds_fn: Optional[Callable[[Any], torch.Tensor]] = None):
         if prefill_chunk > 1 and not supports_chunk(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has a per-token decode cache; "
                 f"use prefill_chunk=1")
+        if cfg.family == "encdec" and embeds_fn is None:
+            raise ValueError("the encdec family encodes each request's "
+                             "frames: pass embeds_fn")
         self.cfg = cfg
         self.api = api
         self.model = model
@@ -171,6 +237,7 @@ class TorchBackend:
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
         self.seed = seed
+        self.embeds_fn = embeds_fn
         self.tree = serve_region_tree()
         self.region_ids = [r.region_id for r in self.tree.regions()]
         root = self.tree.root.name
@@ -182,16 +249,16 @@ class TorchBackend:
         self._prompt: List[Optional[np.ndarray]] = [None] * lanes
         self.outputs: Dict[int, List[int]] = {}
         self.model_calls = 0       # decode_step calls, warmup included
-        # Counted from the model, not from cfg.param_count(), which
-        # under-counts the ssm family as the reference's does.
-        self.weight_bytes = sum(p.numel() * p.element_size()
-                                for p in model.parameters())
+        self.encode_calls = 0      # encdec encodes, warmup included
+        self.weight_bytes = decode_weight_bytes(cfg, model)
+        self.enc_len = cfg.frontend_tokens if cfg.family == "encdec" else 0
         # A window caps the cache's slots (layers.init_attention_cache).
         self.cache_slots = max_len if cfg.window is None \
             else min(max_len, cfg.window)
         # The reference's formula, for every attention family: it
         # over-counts an MLA cache (which holds r + rope values a token and
-        # layer), but the served trace carries the reference's numbers.
+        # layer) and a hybrid's (whose recurrent layers hold no cache), but
+        # the served trace carries the reference's numbers.
         self.kv_bytes_per_token = (
             2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim
             * torch.empty((), dtype=cfg.activation_dtype()).element_size())
@@ -203,6 +270,20 @@ class TorchBackend:
     def _decode(self, state, tokens: torch.Tensor, pos):
         self.model_calls += 1
         return self.api.decode_step(self.model, state, tokens, pos)
+
+    def fresh_state(self, embeds: Optional[torch.Tensor] = None):
+        """A new lane's decode state; for encdec encoded from ``embeds``
+        (1, T_enc, d) (None: zero frames), its cross K/V computed once."""
+        if self.cfg.family != "encdec":
+            return self.api.init_decode_state(1, self.max_len)
+        if embeds is None:
+            embeds = torch.zeros((1, self.enc_len, self.cfg.d_model),
+                                 device=self.device)
+        self.encode_calls += 1
+        with torch.no_grad():
+            enc_out = self.model.encode(embeds.to(self.device))
+        return self.api.init_decode_state(1, self.max_len, model=self.model,
+                                          enc_out=enc_out)
 
     @staticmethod
     def _sample(logits: torch.Tensor) -> torch.Tensor:
@@ -226,7 +307,7 @@ class TorchBackend:
             shapes.add(self.prefill_chunk)
         logits = None
         for k in sorted(shapes):
-            state = self.api.init_decode_state(1, self.max_len)
+            state = self.fresh_state()
             toks = torch.zeros((1, k), dtype=torch.int32, device=self.device)
             logits, _ = self._decode(state, toks, self._positions(0, k))
         self._sample(logits)
@@ -251,8 +332,9 @@ class TorchBackend:
                 continue
             lane, req = ev.lane, ev.request
             if ev.new_request:
-                self._state[lane] = self.api.init_decode_state(1,
-                                                               self.max_len)
+                self._state[lane] = self.fresh_state(
+                    self.embeds_fn(req) if self.cfg.family == "encdec"
+                    else None)
                 self._pending_logits[lane] = None
                 self._prompt[lane] = prompt_tokens(req, self.cfg.vocab,
                                                    self.seed)
@@ -262,7 +344,7 @@ class TorchBackend:
                 toks = torch.as_tensor(self._prompt[lane][:, a:a + k],
                                        device=self.device)
                 fl, by = call_costs(self.cfg, k, self.cache_slots,
-                                    self.weight_bytes)
+                                    self.weight_bytes, self.enc_len)
                 (logits, _), dw, dc = self._timed(
                     self._decode, self._state[lane], toks,
                     self._positions(a, k))
@@ -277,7 +359,7 @@ class TorchBackend:
                 self._write(tr, SAMPLE, lane, dw, dc, *sample_costs(self.cfg))
                 self.outputs[req.rid].append(int(tok[0, 0]))
                 fl, by = call_costs(self.cfg, 1, self.cache_slots,
-                                    self.weight_bytes)
+                                    self.weight_bytes, self.enc_len)
                 (logits, _), dw, dc = self._timed(
                     self._decode, self._state[lane], tok, ev.decode_pos)
                 self._pending_logits[lane] = logits

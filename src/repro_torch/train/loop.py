@@ -1,16 +1,19 @@
 """Training loop: the step function, the traced step, checkpoints.
 
-The PyTorch port of the reference's ``repro/train/loop.py`` for the dense
-and moe families (the ssm family waits for a WKV-6 gradient).
+The PyTorch port of the reference's ``repro/train/loop.py`` for every
+family but ssm, which waits for a WKV-6 gradient (the hybrid family trains
+through its plain RG-LRU scan, encdec's cross-attention through the
+attention kernel's autograd Function; a vlm or encdec batch carries its
+frontend's ``embeds``: ``data.batch_for_model``).
 Parameters are a dict of tensors keyed as the model's state dict; the
-model module itself is a skeleton on the
-``meta`` device that :func:`repro_torch.models.transformer.loss_fn` runs
-with those tensors swapped in (``torch.func.functional_call``), and
-gradients come from ``torch.autograd.grad`` with respect to detached leaf
-copies.  Every step function returns new tensors and updates nothing in
-place: a traced step runs each region more than once on the same input
-state (``TimedRegionRunner``'s cost count and warmup) and keeps only the
-last output, so training state advances exactly once per step.
+model module itself is a skeleton on the ``meta`` device that its
+family's ``loss_fn`` (``models.family_module``) runs with those tensors
+swapped in (``torch.func.functional_call``), and gradients come from
+``torch.autograd.grad`` with respect to detached leaf copies.  Every
+step function returns new tensors and updates nothing in place: a traced
+step runs each region more than once on the same input state
+(``TimedRegionRunner``'s cost count and warmup) and keeps only the last
+output, so training state advances exactly once per step.
 
 With ``TrainerConfig.trace`` set the trainer runs a *region-instrumented*
 step — the forward/backward and the optimizer as leaves of a
@@ -40,7 +43,7 @@ from repro_torch.core import (RegionTrace, RegionTree, TimedRegionRunner,
                               WALL_TIME, optics_cluster)
 from repro_torch.data import DataConfig, device_batch, host_batch, to_device
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import family_module
 from repro_torch.models.convert import params_from_tree, params_to_tree
 from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
 
@@ -50,30 +53,32 @@ Params = Dict[str, torch.Tensor]
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for what cannot train yet: the families not ported
-    (``check_family``) and the ssm family, whose WKV-6 kernel has no
+    """Raise for what cannot train yet: a family the reference does not
+    know (``ValueError``) and the ssm family, whose WKV-6 kernel has no
     gradient (on the card its output would carry none)."""
-    transformer.check_family(cfg)
+    family_module(cfg)
     if cfg.family == "ssm":
         raise NotImplementedError(
             f"{cfg.name}: ssm training needs a gradient of the WKV-6 kernel "
             f"(ROADMAP.md queue 1, item 6)")
 
 
-def _skeleton(cfg: ModelConfig) -> transformer.Transformer:
+def _skeleton(cfg: ModelConfig) -> torch.nn.Module:
     """The model's structure with no storage: every call swaps a
     parameter dict in."""
     check_trainable(cfg)
-    return transformer.Transformer(cfg, "meta", seed=None)
+    return family_module(cfg).init(cfg, None, "meta")
 
 
-def value_and_grad(model: transformer.Transformer, params: Params,
+def value_and_grad(model: torch.nn.Module, params: Params,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Params]:
     """``(total, info, grads)`` of the loss at ``params``, differentiated
-    through detached leaf copies (``params`` gains no graph or ``.grad``)."""
+    through detached leaf copies (``params`` gains no graph or ``.grad``).
+    ``batch`` holds ``tokens``, ``labels``, optionally ``mask`` and, for
+    a vlm or encdec model, ``embeds``."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-    total, info = transformer.loss_fn(model, leaves, batch)
+    total, info = family_module(model.cfg).loss_fn(model, leaves, batch)
     grads = torch.autograd.grad(total, list(leaves.values()))
     return (total.detach(), {k: v.detach() for k, v in info.items()},
             dict(zip(leaves, grads)))
@@ -211,7 +216,7 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 
     def eval_step(params, batch):
         with torch.no_grad():
-            _, info = transformer.loss_fn(model, params, batch)
+            _, info = family_module(cfg).loss_fn(model, params, batch)
         return info["loss"]
 
     return eval_step
@@ -330,7 +335,8 @@ class Trainer:
         self._build()
 
     def _build(self) -> None:
-        model = transformer.init(self.cfg, self.tcfg.seed, self.device)
+        model = family_module(self.cfg).init(self.cfg, self.tcfg.seed,
+                                             self.device)
         self.params: Params = {k: p.detach()
                                for k, p in model.named_parameters()}
         del model

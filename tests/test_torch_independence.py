@@ -25,6 +25,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
 
@@ -35,9 +36,14 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, env=env,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    # core (12), kernels (5), configs (9), scenarios (7), cli (3),
-    # models (4), serve (3), launch (2), device (1), the package itself ...
-    assert int(out.stdout.strip().splitlines()[-1]) >= 45
+    # core (12), kernels (5), configs (12), scenarios (7), cli (3),
+    # models (8), serve (3), launch (2), device (1), the package itself ...
+    *_, names, count = out.stdout.strip().splitlines()
+    assert int(count) >= 45
+    for name in ("models.rglru", "models.encdec", "configs.phi3_vision_4_2b",
+                 "configs.recurrentgemma_9b", "configs.seamless_m4t_medium",
+                 "data.pipeline"):
+        assert f"repro_torch.{name}" in names.split(), name
 
 
 def test_no_source_mentions_jax_imports():

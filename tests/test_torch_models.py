@@ -234,11 +234,24 @@ def test_seeded_init_mirrors_dense_init():
 
 
 def test_other_families_raise_naming_the_queue():
-    cfg = get_arch("gemma-7b").smoke.with_(family="hybrid")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    """Every family of the reference builds; a family it does not know
+    raises ValueError in both packages, and the ssm family still cannot
+    train (ROADMAP.md queue 1, item 6)."""
+    from repro_torch.train.loop import check_trainable
+    cfg = get_arch("gemma-7b").smoke.with_(family="diffusion")
+    with pytest.raises(ValueError, match="unknown model family"):
         transformer.Transformer(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="unknown model family"):
         build(cfg, "cpu")
+    with pytest.raises(ValueError):
+        ref_build(ref_arch("gemma-7b").smoke.with_(family="diffusion")
+                  ).init(jax.random.key(0))
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        check_trainable(get_arch("rwkv6-3b").smoke)
+    for arch in ("phi-3-vision-4.2b", "recurrentgemma-9b",
+                 "seamless-m4t-medium"):
+        check_trainable(get_arch(arch).smoke)
+        assert build(get_arch(arch).smoke, "cpu").init(0) is not None
 
 
 def test_build_defaults_to_the_card():

@@ -216,7 +216,9 @@ def test_chip_smoke_rmsnorm_cases_rehearsed_on_cpu():
     assert paths == {(1, 3072, 0): "row", (1, 2560, 0): "row",
                      (256, 3072, 0): "row", (300, 3840, 0): "row",
                      (3, 3004, 0): "scalar", (4, 2560, 1): "scalar",
-                     (1, 2048, 0): "row", (256, 2048, 0): "row"}
+                     (1, 2048, 0): "row", (256, 2048, 0): "row",
+                     (1, 4096, 0): "row", (1, 1024, 0): "row",
+                     (1024, 1024, 0): "row"}
     assert cs.rmsnorm_plan_of(3, 3004, torch.float32).path == "row"
     x, _ = cs.rmsnorm_inputs(4, 40, torch.bfloat16, "cpu", 1)
     assert x.shape == (4, 40) and x.is_contiguous() and x.data_ptr() % 16
@@ -259,7 +261,9 @@ def test_chip_smoke_kernel_phase_rehearsed_on_cpu():
         "gemma-decode": "split", "danube-decode": "split",
         "gemma-prefill": "wgmma", "gemma-prefill-first": "wgmma",
         "danube-prefill": "wgmma", "mla-decode": "split",
-        "mla-prefill": "wgmma"}
+        "mla-prefill": "wgmma", "phi3v-decode": "split",
+        "phi3v-prefill": "wgmma", "rgemma-decode": "wgmma",
+        "seamless-encode": "wgmma", "seamless-cross": "split"}
     assert cs.attention_plan_of("danube-prefill", torch.float32).path == \
         "simt"
 
