@@ -114,7 +114,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the losses of 3 AdamW steps within 1e-4 relative;
 17. training: st-100m FULL through ``repro_torch.launch.train --steps 20
    --batch 8 --seq 1024``; the loss falls (mean of the last 5 steps below
-   the first 5), every forward launches 25 RMSNorms and 12 attentions;
+   the first 5), every step launches 25 RMSNorms and 12 attentions in its
+   forward and, under the config's remat_policy "nothing", 24 and 12 in
+   its recompute (``recompute_per_step``; every training check counts
+   them);
    the median step, tokens/s and peak memory; one step profiled (device
    busy against host wall, idle share, top operations); then a traced
    ``Trainer`` at full width, 4 emulated shards with fwd_bwd iterations
@@ -166,15 +169,45 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    through the kernel's autograd Function), checked as in phase 22; then
    FULL in bf16 served with phase 11's traffic, each request encoding its
    1024 frames when it arrives: 37 RMSNorms and 24 attentions a decode
-   call, 25 and 12 an encode.
+   call, 25 and 12 an encode;
+25. WKV-6's training call: ``Wkv6Function`` (the kernel forward on a copy
+   of the state, the plain backward formulas) against autograd through
+   ``wkv6_ref`` on the card, at rwkv6-3b's heads with T = 1024 (B = 1 and
+   8) and phase 9's ragged case, from a non-zero state, both decay forms,
+   float32 and bf16: output and final state within 2e-5 of their scale,
+   every gradient within 1e-4 of its scale (plus the bf16 rounding where
+   a value is bf16); one launch a forward; at (8, 1024, 40, 64) bf16 the
+   times of the forward, the backward formulas and the plain version
+   beside the bounds of the forward and of the gradient;
+26. rwkv6-3b's full width cut to 2 layers, float32: one training step's
+   loss (1e-5 relative) and every gradient (1e-4 of scale) card against
+   host at S = 256 (the reference's scan) and 640 (past its chunked
+   threshold), the card under remat_policy "full", "dots" and "nothing"
+   with each policy's launches; the card's gradients under the three
+   within 1e-6 of their scale of each other;
+27. ssm training: rwkv6-3b FULL in bf16 through ``repro_torch.launch.train
+   --steps 20 --batch 8 --seq 1024`` (the reference's train_4k is 256 x
+   4096, more than one card holds); the loss falls; every step launches
+   65 RMSNorms and 32 WKV-6s in its forward and 64 and 32 in its
+   recompute; the median step, tokens/s and peak memory; one step
+   profiled as in phase 17, with the WKV-6 kernel's share of its device
+   time, and one more with CPU activity too, with the share of the
+   kernels launched inside ``Wkv6Function.backward``'s profiler range
+   (32 calls);
+28. remat measured: st-100m FULL (8 x 1024, float32) and rwkv6-3b FULL
+   (2 x 1024, bf16), 12 steps under each of "full", "dots" and "nothing"
+   from the same weights and batches: every step's time, the median
+   (step 0 excluded), tokens/s, the run's
+   peak memory and, apart, one forward and backward's peak over the
+   memory held before it; each step's loss equal across the policies
+   within 1e-5 relative.
 
-Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21 and 22-24 count the
-kernels' launches from 0 and fail if the main path never launched them (phase
-11's tail counts its own in the child); they also record the seed-row
-launches by seed count k (``SEED_COUNTS``) and the kernel lane's
-candidacies that its
-float32 error bound could not settle and re-decided on the exact lane
-(``AutoAnalyzer.decisions``).  A served trace whose verdicts differ
+Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21, 22-24 and 26-28 count
+the kernels' launches from 0 and fail if the main path never launched
+them (phase 11's tail counts its own in the child); they also record the
+seed-row launches by seed count k (``SEED_COUNTS``) and the kernel
+lane's candidacies that its float32 error bound could not settle and
+re-decided on the exact lane (``AutoAnalyzer.decisions``).  A served trace whose verdicts differ
 between the lanes is saved under ``build/split_traces/`` (the path
 printed) before the phase raises.  The last two lines of standard output are a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -185,6 +218,8 @@ without a card.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import importlib
 import json
 import os
@@ -489,6 +524,22 @@ def time_kernel(m: int, n: int, k: int) -> dict:
 
 
 # -- phase 4 ---------------------------------------------------------------
+
+@contextlib.contextmanager
+def heap_frozen():
+    """The garbage of the phases before collected and what lives on
+    frozen (``gc.freeze``) for the block, so the cyclic collector's full
+    passes inside it scan only the block's own objects: one over phase
+    17's took 140-270 ms and, landing in a corpus entry's timed call,
+    read as a straggler in the wrong shard.  Unfrozen after, so what the
+    block held can be collected again."""
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
 
 def corpus_phase(device) -> dict:
     """The 19 synthetic corpus entries on the kernel lane, held to the
@@ -1084,19 +1135,50 @@ def launches_per_encode(cfg) -> dict:
     return {"rmsnorm": 2 * L + 1, "flash_attention": L}
 
 
+def recompute_per_step(cfg) -> dict:
+    """The launches the backward's recompute adds to one training step
+    under ``cfg.remat_policy`` (``models.transformer.remat``, the
+    reference's ``_maybe_remat``): none under "full"; under any other
+    policy every remat'd block runs its kernels again — each layer of a
+    decoder-only model (a hybrid's pattern groups, not its tail), each
+    encoder and decoder layer of an encdec.  The embedding, the final
+    norms and the head are not recomputed."""
+    if cfg.remat_policy == "full":
+        return {}
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        Le = cfg.n_encoder_layers
+        return {"rmsnorm": 3 * L + 2 * Le, "flash_attention": 2 * L + Le}
+    if cfg.family == "ssm":
+        return {"rmsnorm": 2 * L, "wkv6": L}
+    if cfg.family == "hybrid":
+        from repro_torch.models.transformer import hybrid_pattern
+        n_blocks, _ = hybrid_pattern(cfg)
+        pat = cfg.recurrent.block_pattern
+        return {"rmsnorm": 2 * n_blocks * len(pat),
+                "flash_attention": n_blocks * (len(pat) - pat.count("rec"))}
+    return {"rmsnorm": 2 * L, "flash_attention": L}
+
+
 def _check_launches(launches: dict, cfg, calls: int, what: str,
-                    encodes: int = 0) -> None:
-    """Every kernel launched exactly ``calls`` times its per-call count
-    and ``encodes`` times its per-encode count, the others not at all."""
+                    encodes: int = 0, steps: int = 0) -> None:
+    """Every kernel launched exactly ``calls`` times its per-call count,
+    ``encodes`` times its per-encode count and ``steps`` times the
+    recompute of a training step (``steps`` of the calls were forwards
+    that autograd recorded and differentiated), the others not at all."""
     from repro_torch import kernels as K
     want = {name: 0 for name in K.LAUNCHES}
     want.update({k: n * calls for k, n in launches_per_call(cfg).items()})
     if encodes:
         for k, n in launches_per_encode(cfg).items():
             want[k] += n * encodes
+    for k, n in recompute_per_step(cfg).items():
+        want[k] += n * steps
     if launches != want or calls == 0:
         raise AssertionError(f"{what} launched {launches}, want {want} for "
-                             f"{calls} model calls and {encodes} encodes")
+                             f"{calls} model calls, {encodes} encodes and "
+                             f"{steps} training steps under remat_policy "
+                             f"{cfg.remat_policy!r}")
 
 
 def parity_models(cfg, device, seed: int = 0) -> tuple:
@@ -1248,45 +1330,54 @@ def forward_parity(cfg, host, card, device, text: int, seed: int = 0
     return res
 
 
-def grad_parity(cfg, host, card, device, batch: int, seq: int,
-                seed: int = 0) -> dict:
-    """One training step's loss and every gradient (``value_and_grad``,
-    the step function's differentiation) on each side for the same
-    ``data.batch_for_model`` batch (a vlm's and an encdec's with their
-    stub embeds): loss within TRAIN_LOSS_RTOL relative, every gradient
-    within GRAD_TOL of its scale."""
-    import torch
+def step_grads(cfg, model, batch: int, seq: int, seed: int = 0) -> tuple:
+    """``(loss, {name: gradient on the host}, launches, text shape)`` of
+    one training step's differentiation (``value_and_grad``, under
+    ``cfg``'s remat policy) at ``model``'s weights, for the
+    ``data.batch_for_model`` batch of ``seed`` (a vlm's and an encdec's
+    with their stub embeds), launch counts from 0."""
     from repro_torch import kernels as K
     from repro_torch.configs import SHAPES
     from repro_torch.data import batch_for_model
     from repro_torch.models import family_module
     from repro_torch.train.loop import value_and_grad
     skeleton = family_module(cfg).init(cfg, None, "meta")
-    out = {}
-    for side, model in (("card", card), ("host", host)):
-        dev = model.device
-        b = batch_for_model(cfg, SHAPES["train_4k"], batch_override=batch,
-                            seq_override=seq, step=seed, device=dev)
-        params = {k: p.detach() for k, p in model.named_parameters()}
-        K.reset_launches()
-        loss, _, grads = value_and_grad(skeleton, params, b)
-        out[side] = (float(loss), {k: g.cpu() for k, g in grads.items()},
-                     dict(K.LAUNCHES), list(b["tokens"].shape))
-        del grads
+    b = batch_for_model(cfg, SHAPES["train_4k"], batch_override=batch,
+                        seq_override=seq, step=seed, device=model.device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    K.reset_launches()
+    loss, _, grads = value_and_grad(skeleton, params, b)
+    return (float(loss), {k: g.cpu() for k, g in grads.items()},
+            dict(K.LAUNCHES), list(b["tokens"].shape))
+
+
+def hold_grads(cfg, card_step: tuple, host_step: tuple, device,
+               what: str = "training step") -> dict:
+    """A card step (:func:`step_grads`) against the host's: loss within
+    TRAIN_LOSS_RTOL relative, every gradient within GRAD_TOL of its scale,
+    and on the card the launches of one differentiated forward."""
     (c_loss, c_grads, launches, shape), (h_loss, h_grads, _, _) = \
-        out["card"], out["host"]
+        card_step, host_step
     if not abs(c_loss - h_loss) <= TRAIN_LOSS_RTOL * abs(h_loss):
-        raise AssertionError(f"training loss card {c_loss}, host {h_loss}")
+        raise AssertionError(f"{what}: loss card {c_loss}, host {h_loss}")
     grad_err = {k: _within_scale(c_grads[k], h_grads[k], GRAD_TOL,
-                                 f"gradient {k}") for k in h_grads}
+                                 f"{what}: gradient {k}") for k in h_grads}
     if _on_card(device):
-        _check_launches(launches, cfg, 1, "training step",
-                        int(cfg.family == "encdec"))
+        _check_launches(launches, cfg, 1, what,
+                        int(cfg.family == "encdec"), steps=1)
     worst = max(grad_err, key=grad_err.get)
     return {"loss": [c_loss, h_loss], "worst_grad": [worst, grad_err[worst]],
             "grad_err": {k: grad_err[k] for k in ("vis_proj",)
                          if k in grad_err},
             "launches": launches, "text_shape": shape}
+
+
+def grad_parity(cfg, host, card, device, batch: int, seq: int,
+                seed: int = 0) -> dict:
+    """One training step's loss and every gradient on each side for the
+    same batch (:func:`step_grads`), held by :func:`hold_grads`."""
+    return hold_grads(cfg, step_grads(cfg, card, batch, seq, seed),
+                      step_grads(cfg, host, batch, seq, seed), device)
 
 
 def family_parity_phase(cfg, device, seed: int = 0) -> dict:
@@ -2471,7 +2562,8 @@ def train_parity_phase(cfg, device, batch: int = 2, seq: int = 256,
             raise AssertionError(f"AdamW losses card {losses['card']}, host "
                                  f"{losses['host']}")
     if _on_card(device):
-        _check_launches(launches["card"], cfg, steps + 1, "training parity")
+        _check_launches(launches["card"], cfg, steps + 1, "training parity",
+                        steps=steps + 1)
     return {"loss": res["loss"], "losses": [losses["card"], losses["host"]],
             "worst_grad": res["worst_grad"],
             "launches": {k: n + res["launches"][k]
@@ -2491,11 +2583,14 @@ TRACE_STEPS = 2
 TRACE_ANALYZER_KW = {"threshold_frac": 0.45}
 
 
-def train_phase(argv, device) -> dict:
+def train_phase(argv, device, ranges=()) -> dict:
     """Train through ``repro_torch.launch.train`` with launch counts from
     0: the loss must fall (the mean of the last 5 steps below the mean of
-    the first 5) and on the card every forward must launch 2L+1 RMSNorms
-    and L attentions; then one more step profiled (on the card)."""
+    the first 5) and on the card every step must launch its forward's
+    kernels (``launches_per_call``) and its recompute's
+    (``recompute_per_step``); then one more step profiled (on the
+    card), and one more with the profiler ``ranges`` read
+    (:func:`range_breakdown`) if any are named."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -2515,11 +2610,14 @@ def train_phase(argv, device) -> dict:
             np.mean(losses[-5:]) < np.mean(losses[:5]):
         raise AssertionError(f"training loss did not fall: {losses}")
     if on_card:
-        _check_launches(launches, trainer.cfg, len(hist), "training")
+        _check_launches(launches, trainer.cfg, len(hist), "training",
+                        steps=len(hist))
     tp = train.throughput(trainer, args)
     return {"losses": losses, "launches": launches, "steps": len(hist),
             "wall_s": wall, **tp,
-            "breakdown": train_breakdown(trainer) if on_card else None}
+            "breakdown": train_breakdown(trainer) if on_card else None,
+            "ranges": (range_breakdown(trainer, ranges)
+                       if on_card and ranges else None)}
 
 
 def train_breakdown(trainer) -> dict:
@@ -2558,6 +2656,36 @@ def train_breakdown(trainer) -> dict:
             "top": [(t / 1e3, c, key[:90]) for t, c, key in rows[:12]]}
 
 
+def range_breakdown(trainer, names) -> dict:
+    """One more training step under torch.profiler with CPU and CUDA
+    activity (apart from :func:`train_breakdown`'s, whose host wall the
+    CPU activity would slow): the device's busy time (kernels and copies,
+    not the annotations' spans) and, per profiler range in ``names``
+    (``torch.profiler.record_function``), its calls and the device time
+    of the kernels launched inside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
+        trainer.run(1)
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy = sum(e.device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    out = {"busy_ms": busy, "ranges": {}}
+    for name in names:
+        hits = [e for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+        out["ranges"][name] = {
+            "calls": len(hits),
+            "device_ms": sum(e.device_time_total for e in hits) / 1e3}
+    return out
+
+
 def traced_train_phase(cfg, device, batch: int = 8, seq: int = 1024,
                        iters=TRACE_ITERS, steps: int = TRACE_STEPS) -> dict:
     """A traced Trainer of ``cfg``: len(iters) emulated shards, shard i
@@ -2591,7 +2719,8 @@ def traced_train_phase(cfg, device, batch: int = 8, seq: int = 1024,
     forwards = steps * (runner.warmup + runner.repeats) * sum(iters) \
         + iters[0]
     if on_card:
-        _check_launches(launches, cfg, forwards, "traced training")
+        _check_launches(launches, cfg, forwards, "traced training",
+                        steps=forwards)
     trace = trainer.trace
     K.reset_launches()
     an_k = AutoAnalyzer(trainer.region_tree, distance_backend="kernel",
@@ -2717,6 +2846,393 @@ RGEMMA_SERVE_ARGV = ("--arch", RGEMMA, *RWKV_SERVE_ARGV[2:])
 SEAMLESS_SERVE_ARGV = ("--arch", SEAMLESS, *RWKV_SERVE_ARGV[2:])
 
 
+# -- phases 25-28: ssm training and the remat policy ------------------------
+
+# WKV-6's training call (B, T, H, dh), each from a non-zero state: rwkv6-3b's
+# heads at the trainer's T = 1024, one batch row and the trainer's eight,
+# and phase 9's ragged case.
+TRAIN_WKV_CASES = {"t1024": (1, 1024, 40, 64), "b8": (8, 1024, 40, 64),
+                   "ragged": (2, 100, 4, 16)}
+TRAIN_WKV_MAIN = "b8"
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "dS0")
+# The policies of models.transformer.remat, in the order of phase 28.
+REMAT_POLICIES = ("full", "dots", "nothing")
+# Phase 26: rwkv6-3b's width cut to 2 layers, float32, one batch row at the
+# reference's scan path (256) and past its chunked threshold (640); card
+# gradients under the three policies equal within REMAT_TOL of their scale
+# (the backward's order of float32 sums may differ from run to run on the
+# card: atomics in the embedding's gradient).
+RWKV_GRAD_SEQS = (256, 640)
+REMAT_TOL = 1e-6
+# Phase 27: rwkv6-3b FULL trained in bf16 at 8 x 1024 (the reference's
+# train_4k is 256 x 4096, which one card cannot hold).
+RWKV_TRAIN_ARGV = ("--arch", "rwkv6-3b", "--steps", "20", "--batch", "8",
+                   "--seq", "1024")
+# Phase 28: (arch, batch, seq, steps) measured under each policy; the
+# losses of each step equal across policies within REMAT_LOSS_RTOL.  Runs
+# of 5 steps read rwkv6-3b's "full" 3% to 13% below "nothing" from one
+# run to the next, so each policy takes 12 (11 timed) and the log gives
+# every step's time.
+REMAT_RUNS = (("st-100m", 8, 1024, 12), ("rwkv6-3b", 2, 1024, 12))
+REMAT_LOSS_RTOL = 1e-5
+
+
+def train_wkv6_inputs(name: str, decay: str, dtype, device) -> tuple:
+    """Seeded r, k, v (normal, in ``dtype``), float32 w (the model's
+    exp(-exp(N(0, 1))) or uniform(0.75, 0.999)), u = 0.5 N(0, 1), S0 =
+    0.1 N(0, 1), and an output gradient g = N(0, 1)."""
+    import numpy as np
+    import torch
+    B, T, H, dh = TRAIN_WKV_CASES[name]
+    rng = np.random.default_rng(list(TRAIN_WKV_CASES).index(name) * 2
+                                + WKV_DECAYS.index(decay) + 211)
+    shape = (B, T, H, dh)
+    r, k, v, g = (rng.standard_normal(shape) for _ in range(4))
+    w = (np.exp(-np.exp(rng.standard_normal(shape))) if decay == "model"
+         else rng.uniform(0.75, 0.999, shape))
+    u = 0.5 * rng.standard_normal((H, dh))
+    S0 = 0.1 * rng.standard_normal((B, H, dh, dh))
+    f32 = dict(dtype=torch.float32, device=device)
+    return ([torch.as_tensor(a, dtype=dtype, device=device)
+             for a in (r, k, v)]
+            + [torch.as_tensor(a, **f32) for a in (w, u, S0)],
+            torch.as_tensor(g, **f32))
+
+
+def check_train_wkv6(name: str, device) -> dict:
+    """``Wkv6Function`` (the kernel forward, the plain backward formulas)
+    against autograd through ``wkv6_ref`` on the same device, for both
+    decay forms, float32 and bf16 r/k/v: the output and the final state
+    within WKV_TOL of their scale, every gradient within GRAD_TOL of its
+    scale (plus, where a value is rounded to bf16, that rounding: 2^-8 of
+    a long call's output, rounded on one side only, and one bf16 ulp,
+    up to 2^-7 of its size, for the gradients of bf16 r, k and v, rounded
+    on both);
+    on the card one launch a forward.  Returns the largest error over
+    scale of the output and of each float32-input gradient, and the
+    largest share of its tolerance any bf16 gradient used."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.wkv6 import CHUNKED_T
+    res = {"fwd": 0.0, **{t: 0.0 for t in WKV_GRADS}, "bf16_share": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for decay in WKV_DECAYS:
+            ins, g = train_wkv6_inputs(name, decay, dtype, device)
+            what = f"training wkv6 {name} {dtype} {decay} decays"
+            K.reset_launches()
+            (out, S), got = _function_grads(K.Wkv6Function.apply, ins, g)
+            if _on_card(device) and K.LAUNCHES["wkv6"] != 1:
+                raise AssertionError(f"{what}: {K.LAUNCHES} launches")
+            (want, S_want), grads = _function_grads(K.wkv6_ref, ins, g)
+            rounded = dtype != torch.float32 and ins[0].shape[1] >= CHUNKED_T
+            err = (out - want).abs()
+            tol = WKV_TOL * want.abs().max() + (2.0 ** -8 * want.abs()
+                                                if rounded else 0.0)
+            if bool((err > tol).any()):
+                raise AssertionError(f"{what}: output max |err| "
+                                     f"{float(err.max())}")
+            _within_scale(S, S_want, WKV_TOL, what + " final state")
+            if not rounded:
+                res["fwd"] = max(res["fwd"], float(err.max()
+                                                   / want.abs().max()))
+            for tag, a, b in zip(WKV_GRADS, got, grads):
+                if a.dtype != b.dtype:
+                    raise AssertionError(f"{what} {tag}: {a.dtype}")
+                if a.dtype == torch.float32:
+                    e = _within_scale(a, b, GRAD_TOL, f"{what} {tag}")
+                    if dtype == torch.float32:
+                        res[tag] = max(res[tag], e)
+                    continue
+                a, b = a.float(), b.float()
+                tol = GRAD_TOL * b.abs().max() + 2.0 ** -7 * b.abs()
+                share = float(((a - b).abs() / tol).max())
+                if not share <= 1.0:
+                    raise AssertionError(f"{what} {tag}: {share} of its "
+                                         f"tolerance")
+                res["bf16_share"] = max(res["bf16_share"], share)
+    return res
+
+
+def _function_grads(fn, inputs, g) -> tuple:
+    """((out, S), input gradients) of ``fn(*inputs) -> (out, S)`` for
+    output gradient ``g`` (none for S), through fresh leaves."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out, S = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g, materialize_grads=True)
+    return (out.detach(), S.detach()), grads
+
+
+def wkv6_backward_bound_ms(B: int, T: int, H: int, dh: int,
+                           itemsize: int) -> tuple:
+    """The least time of the gradient: r, k, v, the output's gradient
+    (float32), w and u read once, the state S0 read once, dr, dk, dv
+    (``itemsize``), dw, du and dS0 written once; per (token, head) the
+    float32 operations of the sequential form's backward: the state again
+    (3·dh²), dS ← w ⊙ dS + r gᵀ (3·dh²), S g, dS v, dSᵀ k and Σ dS ⊙ S
+    (2·dh² each): 14·dh²."""
+    n = B * T * H * dh
+    nbytes = n * (2 * 3 * itemsize + 4 + 4 + 4) + 8 * B * H * dh * dh \
+        + 8 * H * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 14.0 * B * T * H * dh * dh / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_train_wkv6(name: str) -> dict:
+    """bf16 r/k/v (the trainer's dtype), the model's decays, on the card:
+    the training forward (a state copy and one kernel launch; CUDA events
+    and the kernel's device time from the profiler), the backward
+    formulas, the Function's forward and backward, the plain version's
+    forward and its forward and backward through autograd; the bounds of
+    the forward and of the gradient.  No PyTorch call computes WKV-6."""
+    import torch
+    from repro_torch import kernels as K
+    ins, g = train_wkv6_inputs(name, "model", torch.bfloat16, "cuda")
+    B, T, H, dh = TRAIN_WKV_CASES[name]
+    b_ms, b_by = wkv6_bound_ms(B, T, H, dh, 2)
+    bb_ms, bb_by = wkv6_backward_bound_ms(B, T, H, dh, 2)
+
+    def forward():
+        return K.Wkv6Function.apply(*ins)
+    return {
+        "ms": cuda_ms(forward, 20),
+        "device_ms": device_ms(forward, "wkv6", 20),
+        "backward_ms": cuda_ms(lambda: K.wkv6_backward(*ins, g), 3),
+        "fwd_bwd_ms": _fwd_bwd_ms(lambda *a: K.Wkv6Function.apply(*a)[0],
+                                  ins, g, 3),
+        "plain_ms": cuda_ms(lambda: K.wkv6_ref(*ins), 1),
+        "plain_fwd_bwd_ms": _fwd_bwd_ms(lambda *a: K.wkv6_ref(*a)[0], ins,
+                                        g, 1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "backward_bound_ms": bb_ms, "backward_bound_by": bb_by,
+        "launches_per_forward": 1}
+
+
+def rwkv_grad_phase(cfg, device, seqs=RWKV_GRAD_SEQS, batch: int = 1,
+                    seed: int = 0) -> dict:
+    """``cfg`` (rwkv6-3b's width cut) card against host, one training
+    step per sequence length: the host's under ``cfg``'s own policy, the
+    card's under each of REMAT_POLICIES, each held to the host's by
+    :func:`hold_grads` (its launches with the policy's recompute); the
+    card's gradients under the three policies equal within REMAT_TOL of
+    their scale.  Keyed "policy/seq"."""
+    import torch
+    host, card = parity_models(cfg, device, seed)
+    res = {}
+    for seq in seqs:
+        h = step_grads(cfg, host, batch, seq, seed)
+        first = None
+        for pol in REMAT_POLICIES:
+            pcfg = cfg.with_(remat_policy=pol)
+            c = step_grads(pcfg, card, batch, seq, seed)
+            r = hold_grads(pcfg, c, h, device, f"rwkv step {pol} S={seq}")
+            if first is None:
+                first = c[1]
+            else:
+                r["vs_" + REMAT_POLICIES[0]] = max(
+                    _within_scale(c[1][k], first[k], REMAT_TOL,
+                                  f"{pol} gradient {k} against "
+                                  f"{REMAT_POLICIES[0]}")
+                    for k in first)
+                same = sum(bool(torch.equal(c[1][k], first[k]))
+                           for k in first)
+                r["bitwise_equal"] = f"{same} of {len(first)}"
+            res[f"{pol}/{seq}"] = r
+            del c
+    return res
+
+
+def wkv6_shares(breakdown: dict, ranges: dict, layers: int) -> dict:
+    """WKV-6's part of a profiled training step: its kernel's device time
+    in :func:`train_breakdown`'s step, and the device time of the kernels
+    its backward formulas launched (the ``wkv6_backward`` range of
+    ``Wkv6Function.backward``) in :func:`range_breakdown`'s, each over its
+    own step's busy time.  The range must hold ``layers`` calls and some
+    device time."""
+    fwd = breakdown["ported_ms"].get("wkv6", 0.0)
+    bwd = ranges["ranges"]["wkv6_backward"]
+    if bwd["calls"] != layers or not bwd["device_ms"] > 0:
+        raise AssertionError(f"the profiled step's wkv6_backward range: "
+                             f"{bwd}, expected {layers} calls with device "
+                             f"time")
+    return {"forward_ms": fwd, "forward_share": fwd / breakdown["busy_ms"],
+            "backward_calls": bwd["calls"], "backward_ms": bwd["device_ms"],
+            "backward_step_busy_ms": ranges["busy_ms"],
+            "backward_share": bwd["device_ms"] / ranges["busy_ms"]}
+
+
+def remat_phase(cfg, device, batch: int, seq: int, steps: int) -> dict:
+    """``steps`` training steps of ``cfg`` under each of REMAT_POLICIES
+    from the same seeded weights and batches: every step's time and the
+    median (step 0 excluded), the tokens per second at it and the peak
+    device memory of the run; then, apart, the peak of one more forward
+    and backward (``value_and_grad``, where the policy acts; the
+    optimizer's new and old moments can set the step's peak) over the
+    memory held before it (weights and optimizer state); on the card
+    every step's launches with the policy's recompute; each step's loss
+    equal across the policies within REMAT_LOSS_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.data import DataConfig, host_batch, to_device
+    from repro_torch.models import family_module
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.loop import value_and_grad
+    on_card = _on_card(device)
+    dcfg = DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab)
+    res = {}
+    for pol in REMAT_POLICIES:
+        pcfg = cfg.with_(remat_policy=pol)
+        trainer = Trainer(
+            pcfg, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=20),
+            dcfg, TrainerConfig(steps=steps, ckpt_every=0), device=device)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        hist = trainer.run()
+        if on_card:
+            _check_launches(dict(K.LAUNCHES), pcfg, steps, f"remat {pol}",
+                            steps=steps)
+        timed = [h["seconds"] for h in hist[1:]]
+        med = float(np.median(timed))
+        res[pol] = r = {"losses": [h["loss"] for h in hist],
+                        "step_s": timed, "median_step_s": med,
+                        "tokens_per_s": batch * seq / med,
+                        "peak_memory_bytes": (
+                            torch.cuda.max_memory_allocated()
+                            if on_card else None)}
+        if on_card:
+            skeleton = family_module(pcfg).init(pcfg, None, "meta")
+            b = to_device(host_batch(dcfg, steps), trainer.device)
+            torch.cuda.synchronize()
+            r["resident_bytes"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            value_and_grad(skeleton, trainer.params, b)
+            torch.cuda.synchronize()
+            r["fwd_bwd_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del trainer, hist
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    base = res[REMAT_POLICIES[0]]["losses"]
+    for pol in REMAT_POLICIES[1:]:
+        for a, b in zip(res[pol]["losses"], base):
+            if not abs(a - b) <= REMAT_LOSS_RTOL * abs(b):
+                raise AssertionError(f"remat {pol} losses "
+                                     f"{res[pol]['losses']}, "
+                                     f"{REMAT_POLICIES[0]} {base}")
+    return res
+
+
+def ssm_training_phases() -> dict:
+    """Phases 25-28 on the card, logged; returns what the kernels line
+    reads: phase 25's errors and times, phase 27's training run."""
+    from repro_torch.configs import get_arch
+
+    # 25. WKV-6's training call: the Function against the plain version
+    tr_wkv = {}
+    for name, shape in TRAIN_WKV_CASES.items():
+        t0 = time.perf_counter()
+        tr_wkv[name] = r = check_train_wkv6(name, "cuda")
+        if name == TRAIN_WKV_MAIN:
+            r.update(time_train_wkv6(name))
+        log(f"[25] training wkv6 {name} {shape}, f32 and bf16, both decay "
+            f"forms, from a non-zero state: max error over scale output "
+            f"{r['fwd']:.3g} (tolerance {WKV_TOL}), gradients (f32 inputs) "
+            + ", ".join(f"{g} {r[g]:.3g}" for g in WKV_GRADS)
+            + f" (tolerance {GRAD_TOL}); bf16 gradients used at most "
+            f"{r['bf16_share']:.3g} of their tolerance; "
+            f"{time.perf_counter() - t0:.1f} s")
+    t = tr_wkv[TRAIN_WKV_MAIN]
+    log(f"[25] training wkv6 {TRAIN_WKV_MAIN} bf16, model decays: forward "
+        f"{t['ms']:.6f} ms (kernel device {t['device_ms']} ms; "
+        f"{t['launches_per_forward']} launch), bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}); backward formulas {t['backward_ms']:.6f} ms, "
+        f"bound {t['backward_bound_ms']:.6f} ms ({t['backward_bound_by']}); "
+        f"Function forward+backward {t['fwd_bwd_ms']:.6f} ms; plain forward "
+        f"{t['plain_ms']:.6f} ms, forward+backward "
+        f"{t['plain_fwd_bwd_ms']:.6f} ms; no library call")
+
+    # 26. rwkv6-3b's width cut, card vs host, under the three policies
+    t0 = time.perf_counter()
+    rgrad = rwkv_grad_phase(parity_config("rwkv6-3b"), "cuda")
+    for key, r in rgrad.items():
+        log(f"[26] rwkv6-3b width, 2 layers, f32, {key} (policy/seq): loss "
+            f"card, host {r['loss']} (tolerance {TRAIN_LOSS_RTOL} relative), "
+            f"worst gradient over its scale {r['worst_grad']} (tolerance "
+            f"{GRAD_TOL}); card launches {r['launches']}"
+            + (f"; against {REMAT_POLICIES[0]} on the card at most "
+               f"{r['vs_' + REMAT_POLICIES[0]]:.3g} of scale (tolerance "
+               f"{REMAT_TOL}), {r['bitwise_equal']} gradients bit for "
+               f"bit"
+               if "bitwise_equal" in r else ""))
+    log(f"[26] {time.perf_counter() - t0:.1f} s")
+
+    # 27. rwkv6-3b FULL trained in bf16
+    rtrained = train_phase(RWKV_TRAIN_ARGV, "cuda",
+                           ranges=("wkv6_backward",))
+    per = {k: n + recompute_per_step(get_arch("rwkv6-3b").full).get(k, 0)
+           for k, n in launches_per_call(get_arch("rwkv6-3b").full).items()}
+    log(f"[27] train {' '.join(RWKV_TRAIN_ARGV)} under remat_policy "
+        f"'nothing': losses {json.dumps(rtrained['losses'])}; launches "
+        f"{rtrained['launches']} (= {per} per step with the recompute, "
+        f"{rtrained['steps']} steps); median step "
+        f"{rtrained['median_step_s'] * 1e3:.4f} ms (step 0 excluded), "
+        f"{rtrained['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{rtrained['peak_memory_bytes']} bytes; wall "
+        f"{rtrained['wall_s']:.1f} s")
+    bd = rtrained["breakdown"]
+    log(f"[27] one training step (torch.profiler, CUDA only): host wall "
+        f"{bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} ms, idle "
+        f"share {bd['idle_share']:.4f}, {bd['operations']} device "
+        f"operations; ported kernels' device ms {bd['ported_ms']}, launches"
+        f" profiled {bd['profiled_launches']} against counted "
+        f"{bd['counted_launches']}{'; ' + bd['lost'] if bd['lost'] else ''}"
+        f"; operations by device time (ms, count):")
+    for ms, n, key in bd["top"]:
+        log(f"    {ms:10.4f} {n:6d}  {key}")
+    layers = get_arch("rwkv6-3b").full.n_layers
+    rtrained["shares"] = sh = wkv6_shares(bd, rtrained["ranges"], layers)
+    log(f"[27] WKV-6 in the profiled steps: the kernel (forward and "
+        f"recompute) {sh['forward_ms']:.4f} ms, {sh['forward_share']:.4f} "
+        f"of the device time; the backward formulas (profiler range "
+        f"wkv6_backward, CPU and CUDA activity, a step apart), "
+        f"{sh['backward_calls']} calls launching {sh['backward_ms']:.4f} ms"
+        f" of kernels, {sh['backward_share']:.4f} of that step's "
+        f"{sh['backward_step_busy_ms']:.4f} ms; for comparison, {layers} "
+        f"calls at phase 25's isolated {t['backward_ms']:.6f} ms would be "
+        f"{layers * t['backward_ms']:.4f} ms")
+
+    # 28. remat measured: memory and step time under each policy
+    remat = {}
+    for arch, batch, seq, steps in REMAT_RUNS:
+        t0 = time.perf_counter()
+        remat[arch] = r = remat_phase(get_arch(arch).full, "cuda", batch,
+                                      seq, steps)
+        for pol in REMAT_POLICIES:
+            x = r[pol]
+            log(f"[28] {arch} FULL {batch} x {seq} "
+                f"({get_arch(arch).full.dtype}), remat_policy {pol!r}: "
+                f"median step "
+                f"{x['median_step_s'] * 1e3:.4f} ms of {steps} (step 0 "
+                f"excluded; min {min(x['step_s']) * 1e3:.4f}, max "
+                f"{max(x['step_s']) * 1e3:.4f}; steps ms "
+                f"{[round(v * 1e3, 4) for v in x['step_s']]}), "
+                f"{x['tokens_per_s']:.1f} tokens/s, peak memory "
+                f"{x['peak_memory_bytes']} bytes; one forward and backward "
+                f"apart: peak {x['fwd_bwd_peak_bytes']} bytes over "
+                f"{x['resident_bytes']} held before it; losses "
+                f"{x['losses']}")
+        log(f"[28] {arch}: losses equal across policies within "
+            f"{REMAT_LOSS_RTOL} relative; {time.perf_counter() - t0:.1f} s")
+    return {"train_wkv": tr_wkv, "rgrad": rgrad, "rtrained": rtrained,
+            "remat": remat}
+
+
 def log_family_parity(phase: str, cfg, res: dict, wall: float) -> None:
     f, d, t = res["forward"], res["decode"], res["train"]
     enc = (f"; encoder output max|card-host| {f['encoder_err']:.6g} of "
@@ -2806,7 +3322,8 @@ def main() -> int:
             f"{t['device_ms']} ms; batched == per-seed bitwise")
 
     # 4. corpus on the kernel lane, then the fault pin
-    corpus = corpus_phase("cuda")
+    with heap_frozen():
+        corpus = corpus_phase("cuda")
     log(f"[4] corpus: {corpus['entries']} synthetic entries match "
         f"VERDICTS_synthetic.json on the kernel lane; "
         f"{corpus['launches']} kernel launches, by seed count k "
@@ -3009,7 +3526,8 @@ def main() -> int:
 
     # 14. chaos and fleet entries on the card
     t0 = time.perf_counter()
-    chaos = chaos_phase("cuda")
+    with heap_frozen():
+        chaos = chaos_phase("cuda")
     log(f"[14] {len(CHAOS_OUTCOMES)} chaos and fleet entries at seeds "
         f"{list(CHAOS_SEEDS)} pass on the kernel lane with the reference's "
         f"outcomes ({chaos['runs']} runs, {time.perf_counter() - t0:.1f} s;"
@@ -3063,9 +3581,13 @@ def main() -> int:
     # 17. training st-100m FULL, profiled, then a traced trainer
     from repro_torch.configs import get_arch
     trained = train_phase(TRAIN_ARGV, "cuda")
-    log(f"[17] train {' '.join(TRAIN_ARGV)}: losses "
+    st_full = get_arch("st-100m").full
+    log(f"[17] train {' '.join(TRAIN_ARGV)} under remat_policy "
+        f"{st_full.remat_policy!r}: losses "
         f"{json.dumps(trained['losses'])}; launches {trained['launches']} "
-        f"(= 25 and 12 per forward, {trained['steps']} forwards); median "
+        f"(= {launches_per_call(st_full)} per forward and "
+        f"{recompute_per_step(st_full)} per recompute, {trained['steps']} "
+        f"steps); median "
         f"step {trained['median_step_s'] * 1e3:.4f} ms (step 0 excluded), "
         f"{trained['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{trained['peak_memory_bytes']} bytes; wall {trained['wall_s']:.1f}"
@@ -3095,7 +3617,8 @@ def main() -> int:
 
     # 18. the training and serving slice's corpus entries on the card
     t0 = time.perf_counter()
-    newe = new_entries_phase("cuda")
+    with heap_frozen():
+        newe = new_entries_phase("cuda")
     log(f"[18] {len(NEW_ENTRIES)} serving, train, recovery and checkpoint "
         f"entries at seeds {list(CHAOS_SEEDS)} pass on the kernel lane with "
         f"the reference's outcomes ({len(newe['runs'])} runs, "
@@ -3153,7 +3676,8 @@ def main() -> int:
             f"{r['launches']} over {r['forwards']} forwards; "
             f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    moee = new_entries_phase("cuda", names=MOE_ENTRIES)
+    with heap_frozen():
+        moee = new_entries_phase("cuda", names=MOE_ENTRIES)
     log(f"[21] {len(MOE_ENTRIES)} MoE train entries at seeds "
         f"{list(CHAOS_SEEDS)} pass on the kernel lane with the reference's "
         f"outcomes ({len(moee['runs'])} runs, {time.perf_counter() - t0:.1f}"
@@ -3192,6 +3716,9 @@ def main() -> int:
                       time.perf_counter() - t0)
     eserved = serve_phase(SEAMLESS_SERVE_ARGV, "cuda")
     log_served("24", SEAMLESS_SERVE_ARGV, eserved)
+
+    # 25-28. ssm training and the remat policy
+    ssm = ssm_training_phases()
 
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
@@ -3311,7 +3838,15 @@ def main() -> int:
         "dtype": "bfloat16",
         "t512": {"shape": list(WKV_CASES[WKV_LONG][:4]), **wkv_t[WKV_LONG]},
         "model_calls": rserved["model_calls"],
+        "launches_train": ssm["rtrained"]["launches"]["wkv6"],
+        "train": {"shape": list(TRAIN_WKV_CASES[TRAIN_WKV_MAIN]),
+                  "dtype": "bfloat16",
+                  **ssm["train_wkv"][TRAIN_WKV_MAIN],
+                  "cases": {n: r for n, r in ssm["train_wkv"].items()
+                            if n != TRAIN_WKV_MAIN},
+                  "step_shares": ssm["rtrained"]["shares"]},
     })
+    rms["launches_train_rwkv6"] = ssm["rtrained"]["launches"]["rmsnorm"]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

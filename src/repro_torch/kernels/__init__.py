@@ -79,11 +79,13 @@ from .flash_attention import (FlashAttentionFunction,  # noqa: E402
                               flash_attention_ref)
 from .rmsnorm import (RmsnormFunction, rmsnorm,  # noqa: E402
                       rmsnorm_backward, rmsnorm_ref)
-from .wkv6 import wkv6, wkv6_ref  # noqa: E402
+from .wkv6 import (Wkv6Function, wkv6, wkv6_backward,  # noqa: E402
+                   wkv6_ref)
 
 __all__ = ["LAUNCHES", "reset_launches", "counting_costs", "counted",
            "loop_trips",
            "multi_seed_rows", "multi_seed_rows_ref", "rmsnorm", "rmsnorm_ref",
            "rmsnorm_backward", "RmsnormFunction", "flash_attention",
            "flash_attention_ref", "flash_attention_backward",
-           "FlashAttentionFunction", "wkv6", "wkv6_ref"]
+           "FlashAttentionFunction", "wkv6", "wkv6_ref", "wkv6_backward",
+           "Wkv6Function"]

@@ -23,6 +23,12 @@ and a float32 output, as the reference's ``models/rwkv.py`` scan branch
 returns.  From ``CHUNKED_T`` tokens on the reference runs its chunked
 form instead, which rounds the output to r's dtype (``rwkv.py:119``) and
 then widens it again (``:166``); the wrapper does the same.
+
+Training goes through :class:`Wkv6Function`: its forward is one call of
+:func:`wkv6` on a fresh copy of the initial state (the caller's tensors
+are never written), its backward the plain formulas of
+:func:`wkv6_backward` on either device.  The reference has no backward
+kernel either: it differentiates its scan and its chunked form.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import LAUNCHES, counted
 
@@ -38,6 +45,9 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # (models/rwkv.py:158).
 CHUNKED_T = 512
 MAX_HEAD_DIM = 128
+# The backward's chunk: the reference's chunked form runs chunks of 32
+# tokens up to 8192 (models/rwkv.py:163).
+BACKWARD_CHUNK = 32
 # The decode kernel's partition (csrc/wkv6.cu): a block owns COL_TILE
 # columns of one head's S, a thread ROWS_PER_THREAD rows of them.
 COL_TILE = 16
@@ -220,3 +230,146 @@ def _launch(r, k, v, w, u, S, out, round_out: bool, plan: Wkv6Plan) -> None:
                            f"(B={B}, T={T}, H={H}, dh={dh}, {r.dtype}, "
                            f"{plan})")
     LAUNCHES["wkv6"] += 1
+
+
+def _chunked(t: torch.Tensor, C: int, fill: float = 0.0) -> torch.Tensor:
+    """(B, T, H, dh) -> float32 (C, nc, B, H, dh): token c * C + i of
+    batch row b at [i, c, b], T padded with ``fill`` to nc * C."""
+    B, T, H, dh = t.shape
+    nc = _cdiv(T, C)
+    t = F.pad(t.float(), (0, 0, 0, 0, 0, nc * C - T), value=fill)
+    return t.reshape(B, nc, C, H, dh).permute(2, 1, 0, 3, 4).contiguous()
+
+
+def _unchunked(t: torch.Tensor, T: int) -> torch.Tensor:
+    """The inverse of :func:`_chunked`, padding dropped."""
+    C, nc, B, H, dh = t.shape
+    return t.permute(2, 1, 0, 3, 4).reshape(B, nc * C, H, dh)[:, :T]
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor,
+                  g_out: torch.Tensor, g_S: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Gradients ``(dr, dk, dv, dw, du, dS0)`` of the recurrence from the
+    state ``S0`` (see :func:`wkv6`), given the output's gradient ``g_out``
+    (B, T, H, dh) and the final state's ``g_S`` (None: zero), in float32
+    (dr, dk, dv in r's dtype).  Plain PyTorch on either device.
+
+    With S_t the state before token t and dS_{t+1} the gradient of the
+    state after it, the sequential form's gradients are
+
+        dS_t  = w_t ⊙ dS_{t+1} + r_t g_tᵀ          (rows scaled by w_t)
+        dr_t  = S_t g_t + u ⊙ k_t (g_t·v_t)
+        dk_t  = dS_{t+1} v_t + u ⊙ r_t (g_t·v_t)
+        dv_t  = dS_{t+1}ᵀ k_t + (Σ r_t ⊙ u ⊙ k_t) g_t
+        dw_t  = Σ_j dS_{t+1}[:, j] ⊙ S_t[:, j]
+        du    = Σ_t r_t ⊙ k_t (g_t·v_t)
+
+    computed in chunks of BACKWARD_CHUNK tokens: one pass over the chunks
+    carries the state to each chunk's start, a second carries dS back to
+    each chunk's end, each chunk's whole contribution a batched product;
+    then the token recurrences run within every chunk at once, a chunk's
+    length of steps over (chunks, B, H) batches of states.  Decays enter
+    only as products of w over spans of a chunk (cumprod: each at most 1),
+    never as a quotient or an exp(-cumsum), so decays near 0 stay finite.
+    The within-chunk states of every token are held at once: B·T·H·dh²
+    float32 values.
+    """
+    B, T, H, dh = r.shape
+    C = min(BACKWARD_CHUNK, T)
+    rc, kc, vc, gc = (_chunked(t, C) for t in (r, k, v, g_out))
+    wc = _chunked(w, C, fill=1.0)             # padding: the state carries
+    nc = wc.shape[1]
+    N = nc * B * H
+    uf = u.float()
+    # Decay products within a chunk: before[i] = Π_{q<i} w_q, after[i] =
+    # Π_{q>i} w_q, whole = Π_q w_q.
+    incl = torch.cumprod(wc, dim=0)
+    whole = incl[-1]
+    ones = torch.ones_like(whole)[None]
+    before = torch.cat([ones, incl[:-1]])
+    after = torch.cat([torch.cumprod(wc.flip(0), dim=0).flip(0)[1:], ones])
+
+    # Pass 1: the state at each chunk's start.
+    Z = torch.einsum("cnbhi,cnbhj->nbhij", kc * after, vc)
+    S = torch.empty((nc, B, H, dh, dh), dtype=torch.float32,
+                    device=r.device)
+    S[0] = S0
+    for c in range(nc - 1):
+        torch.addcmul(Z[c], whole[c, ..., None], S[c], out=S[c + 1])
+    # Pass 2: the gradient of the state at each chunk's end.
+    Y = torch.einsum("cnbhi,cnbhj->nbhij", rc * before, gc)
+    G = torch.empty_like(S)
+    if g_S is None:
+        G[-1].zero_()
+    else:
+        G[-1] = g_S
+    for c in range(nc - 1, 0, -1):
+        torch.addcmul(Y[c], whole[c, ..., None], G[c], out=G[c - 1])
+    del Z, Y
+
+    # Within every chunk at once: states[i] = S before token i.
+    rt, kt, vt, gt, wt = (t.reshape(C, N, dh) for t in (rc, kc, vc, gc, wc))
+    states = torch.empty((C, N, dh, dh), dtype=torch.float32,
+                         device=r.device)
+    states[0] = S.reshape(N, dh, dh)
+    for i in range(C - 1):
+        torch.mul(states[i], wt[i, :, :, None], out=states[i + 1])
+        states[i + 1].addcmul_(kt[i, :, :, None], vt[i, :, None, :])
+    dr = torch.matmul(states, gt[..., None])[..., 0]
+    dk, dv, dw = (torch.empty((C, N, dh), dtype=torch.float32,
+                              device=r.device) for _ in range(3))
+    dS = G.reshape(N, dh, dh).clone()         # the gradient after token i
+    for i in range(C - 1, -1, -1):
+        torch.bmm(dS, vt[i, :, :, None], out=dk[i, :, :, None])
+        torch.bmm(dS.transpose(1, 2), kt[i, :, :, None],
+                  out=dv[i, :, :, None])
+        torch.bmm(dS.reshape(N * dh, 1, dh),
+                  states[i].reshape(N * dh, dh, 1),
+                  out=dw[i].reshape(N * dh, 1, 1))
+        dS.mul_(wt[i, :, :, None]).addcmul_(rt[i, :, :, None],
+                                            gt[i, :, None, :])
+    del states
+    dS0 = dS.reshape(nc, B, H, dh, dh)[0]
+    dr, dk, dv, dw = (_unchunked(t.reshape(C, nc, B, H, dh), T)
+                      for t in (dr, dk, dv, dw))
+    # The bonus term, every token at once.
+    rf, kf, vf, gf = (t.float() for t in (r, k, v, g_out))
+    gv = (gf * vf).sum(-1, keepdim=True)
+    dr = dr + uf * kf * gv
+    dk = dk + uf * rf * gv
+    dv = dv + (rf * uf * kf).sum(-1, keepdim=True) * gf
+    du = (rf * kf * gv).sum((0, 1))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, dS0)
+
+
+class Wkv6Function(torch.autograd.Function):
+    """The recurrence with a gradient: ``Wkv6Function.apply(r, k, v, w,
+    u, S0) -> (out, S)``, the arguments and ``out`` as :func:`wkv6`'s, S0
+    (B, H, dh, dh) float32 read only and S the final state.  The forward
+    is :func:`wkv6` on a copy of S0 (on CUDA one kernel launch); the
+    backward :func:`wkv6_backward`, inside a profiler range of that name
+    (a profile sums the device time of the kernels it launches).  From
+    ``CHUNKED_T`` tokens on, bf16 inputs give an output rounded to bf16,
+    and its gradient passes the rounding straight through, as the VJP of
+    the reference's ``astype`` does."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0):
+        S = S0.clone()
+        out = wkv6(r, k, v, w, u, S)
+        ctx.save_for_backward(r, k, v, w, u, S0)
+        ctx.set_materialize_grads(False)
+        return out, S
+
+    @staticmethod
+    def backward(ctx, g_out, g_S):
+        r, k, v, w, u, S0 = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros(r.shape, dtype=torch.float32,
+                                device=r.device)
+        with torch.profiler.record_function("wkv6_backward"):
+            grads = wkv6_backward(r, k, v, w, u, S0, g_out, g_S)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))

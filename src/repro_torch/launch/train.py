@@ -1,10 +1,13 @@
 """Training launcher: the twin of the reference's ``repro.launch.train``,
 with the same flags plus ``--device``.
 
-On the card (RMSNorm and attention through the hand-written CUDA kernels,
-their gradients through plain PyTorch formulas)::
+On the card (RMSNorm, attention and WKV-6 through the hand-written CUDA
+kernels, their gradients through plain PyTorch formulas; each block
+recomputed in the backward as the config's ``remat_policy`` says)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch st-100m \\
+        --steps 20 --batch 8 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
         --steps 20 --batch 8 --seq 1024
 
 Smoke-scale on the host (the kernels' plain versions)::

@@ -7,7 +7,10 @@ no window (the reference's ``_enc_cfg``).  A decoder block is causal
 self-attention, cross-attention over the encoder's output (q and k not
 roped, non-causal, no window: ``layers.attention``'s ``kv_override``)
 and the MLP.  Decode keeps a self-attention KV cache a layer and the
-cross K/V, computed once from the encoder's output.
+cross K/V, computed once from the encoder's output; the teacher-forced
+forward projects them inside each decoder layer, as the reference's
+``_decoder_block`` does.  Every encoder and decoder layer runs through
+``transformer.remat`` (the reference's ``_maybe_remat``).
 
 Parameters are keyed as the reference's tree: ``enc_layers.{i}`` (``ln1``,
 ``ln2``, ``attn``, ``mlp``), ``dec_layers.{i}`` (``ln1``–``ln3``,
@@ -28,13 +31,19 @@ from .layers import (_project, attention, cross_entropy, embed,
                      rope_angles, rope_dim)
 from .transformer import (_param, _params, _zeros, attention_shapes,
                           chunked_ce_from_hidden, decode_positions,
-                          functional_call, mlp_shapes)
+                          functional_call, mlp_shapes, remat)
 
 Params = Dict[str, torch.Tensor]
 
 
 def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
     return cfg.with_(causal=False, window=None)
+
+
+def cross_positions(kv: torch.Tensor) -> torch.Tensor:
+    """The cross keys' positions, 0..T_enc - 1 (unused by the mask of a
+    non-causal call without a window)."""
+    return torch.arange(kv.shape[1], dtype=torch.int32, device=kv.device)
 
 
 class EncoderLayer(nn.Module):
@@ -79,11 +88,15 @@ class DecoderLayer(nn.Module):
         return (_project(enc_out, self.cross_attn["wk"]),
                 _project(enc_out, self.cross_attn["wv"]))
 
-    def forward(self, x, positions, angles, cross: Tuple[torch.Tensor, ...],
+    def forward(self, x, positions, angles,
+                cross: Union[torch.Tensor, Tuple[torch.Tensor, ...]],
                 cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-        """``cross`` (k, v, their positions); ``cache`` (decode) is
-        updated in place."""
+        """``cross`` the encoder's output (projected here) or (k, v, their
+        positions); ``cache`` (decode) is updated in place."""
         cfg = self.cfg
+        if isinstance(cross, torch.Tensor):
+            k, v = self.cross_kv(cross)
+            cross = (k, v, cross_positions(cross))
         x = x + attention(self.self_attn, cfg,
                           rms_norm(x, self.ln1, cfg.norm_eps), positions,
                           angles, cache)
@@ -138,14 +151,8 @@ class EncDec(nn.Module):
                                  device=x.device)
         angles = self._angles(positions)
         for layer in self.enc_layers:
-            x = layer(x, positions, angles)
+            x = remat(self.cfg, layer, x, positions, angles)
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
-
-    @staticmethod
-    def _kpos(kv: torch.Tensor) -> torch.Tensor:
-        """The cross keys' positions, 0..T_enc - 1 (unused by the mask of
-        a non-causal call without a window)."""
-        return torch.arange(kv.shape[1], dtype=torch.int32, device=kv.device)
 
     def forward(self, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None,
@@ -159,10 +166,8 @@ class EncDec(nn.Module):
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         angles = self._angles(positions)
-        kpos = self._kpos(enc_out)
         for layer in self.dec_layers:
-            k, v = layer.cross_kv(enc_out)
-            x = layer(x, positions, angles, (k, v, kpos))
+            x = remat(self.cfg, layer, x, positions, angles, enc_out)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         info = {"aux": torch.zeros((), dtype=torch.float32, device=x.device)}
         if return_hidden:
@@ -187,7 +192,7 @@ class EncDec(nn.Module):
         x = embed(self.embed, self.cfg, tokens)
         positions = decode_positions(pos, x.device)
         angles = self._angles(positions)
-        kpos = self._kpos(state["cross_k"][0])
+        kpos = cross_positions(state["cross_k"][0])
         for layer, cache, k, v in zip(self.dec_layers, state["layers"],
                                       state["cross_k"], state["cross_v"]):
             x = layer(x, positions, angles, (k, v, kpos), cache)

@@ -6,6 +6,10 @@ The WKV-6 recurrence runs through the port's kernel
 ``csrc/wkv6.cu``, on CPU tensors its plain version.  The reference runs a
 ``lax.scan`` below 512 tokens and its chunked jnp form from 512 on; the
 kernel computes both, and rounds its output as the chunked form does.
+Where autograd needs a graph the call goes through
+:class:`repro_torch.kernels.Wkv6Function` instead (the same kernel
+forward on a fresh state, and a plain backward), so training differentiates
+it as the reference differentiates its scan and its chunked form.
 
 Parameters are in the reference's layout (``init_rwkv_block``): the
 token-shift mixes ``mu_r, mu_k, mu_v, mu_g, mu_w`` and ``mu_c`` (d,), the
@@ -15,8 +19,9 @@ bonus ``u`` and the group-norm weight ``ln_x`` (d,), and the channel-mix
 ``ck`` (d, ff) and ``cv`` (ff, d).
 
 A layer's decode state is ``{"S": (B, H, dh, dh) float32, "last_tm",
-"last_cm": (B, d)}``; ``S`` is updated in place by the kernel, and the
-mixes return the new ``last_*`` for the caller to store.
+"last_cm": (B, d)}``; ``S`` is updated in place by the kernel (a call
+without a gradient), and the mixes return the new ``last_*`` for the
+caller to store.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import wkv6
+from repro_torch.kernels import Wkv6Function, wkv6
+
+from .layers import _differentiable
 
 LORA = 64          # the decay lora's rank (init_rwkv_block)
 GROUP_NORM_EPS = 1e-5  # a literal in the reference, not cfg.norm_eps
@@ -62,8 +69,10 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, T, D), the normed block input.  With ``state`` the token shift
     starts from ``state["last_tm"]`` and the recurrence from
-    ``state["S"]``, which the kernel updates in place; without it both
-    start from zeros.  Returns (y (B, T, D), {"S", "last_tm"})."""
+    ``state["S"]``; without it both start from zeros.  A call that
+    autograd records runs :class:`Wkv6Function` and returns the final
+    state as a new tensor; any other call updates ``S`` in place.
+    Returns (y (B, T, D), {"S", "last_tm"})."""
     B, T, D = x.shape
     H, dh = heads(cfg)
     xs = _shift(x, None if state is None else state["last_tm"])
@@ -81,9 +90,13 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     hs = (B, T, H, dh)
     S = (state["S"] if state is not None else
          torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device))
-    y = wkv6(r.reshape(hs).contiguous(), k.reshape(hs).contiguous(),
-             v.reshape(hs).contiguous(), w.reshape(hs).contiguous(),
-             p["u"].reshape(H, dh).float().contiguous(), S)
+    args = (r.reshape(hs).contiguous(), k.reshape(hs).contiguous(),
+            v.reshape(hs).contiguous(), w.reshape(hs).contiguous(),
+            p["u"].reshape(H, dh).float().contiguous())
+    if _differentiable(*args):
+        y, S = Wkv6Function.apply(*args, S)
+    else:
+        y = wkv6(*args, S)
     # Per-head group norm with the population variance, then the gate in
     # the activation dtype.
     mean = y.mean(-1, keepdim=True)

@@ -12,6 +12,10 @@ place of attention in either attention family.  The encdec family is
 
 The reference stacks its layers (leading L dimension) and drives them with
 ``lax.scan``; here the blocks are an ``nn.ModuleList`` walked in Python.
+Each block (a hybrid's whole pattern group, not its tail) runs through
+:func:`remat`, the twin of the reference's ``_maybe_remat``: a call that
+autograd records keeps what ``cfg.remat_policy`` says and recomputes the
+rest of the block in the backward.
 
 Training differentiates with respect to a dict of leaf tensors keyed as
 the module's state dict: :func:`functional_call` runs the module on them
@@ -28,11 +32,14 @@ carry and float32 ``h``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 
@@ -54,6 +61,41 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown model family "
                          f"{cfg.family!r}; the families are {FAMILIES}")
+
+
+# The products "dots" keeps: those without batch dims (the projections),
+# as jax.checkpoint_policies.dots_with_no_batch_dims_saveable.
+_NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(cfg: ModelConfig, block: nn.Module, *args):
+    """``block(*args)`` under the reference's ``_maybe_remat``.  Where
+    autograd records the call (grad enabled, and an input or a parameter
+    that requires it): ``remat_policy == "full"`` keeps every activation
+    (the reference's name for no recompute); ``"dots"`` keeps the outputs
+    of the products without batch dims and recomputes the rest in the
+    backward; any other value, ``"nothing"`` (the default) included,
+    keeps only the block's inputs and recomputes the whole block.  Other
+    calls (serving, decode) run the block once.
+
+    The recompute runs the block with the parameters it holds then: a
+    caller that swaps tensors in (``functional_call``) keeps them swapped
+    through the backward, as ``train.loop.value_and_grad`` does."""
+    if cfg.remat_policy == "full" or not torch.is_grad_enabled():
+        return block(*args)
+    if not any(t.requires_grad for t in (*block.parameters(), *args)
+               if isinstance(t, torch.Tensor)):
+        return block(*args)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_products)
+    return checkpoint(block, *args, use_reentrant=False, **kw)
 
 
 def _param(shape, dtype, device, generator: Optional[torch.Generator],
@@ -242,20 +284,22 @@ class HybridSublayer(nn.Module):
                        cfg.activation)
 
 
-def _hybrid_group(cfg: ModelConfig, kinds, dtype, device,
-                  generator: Optional[torch.Generator]) -> nn.ModuleDict:
+class HybridGroup(nn.ModuleDict):
     """One block of the pattern (or the tail): ``sub{i}`` of kind
-    ``kinds[i]``."""
-    return nn.ModuleDict({
-        f"sub{i}": HybridSublayer(cfg, kind, dtype, device, generator)
-        for i, kind in enumerate(kinds)})
+    ``kinds[i]``, run in order."""
 
+    def __init__(self, cfg: ModelConfig, kinds, dtype, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__({
+            f"sub{i}": HybridSublayer(cfg, kind, dtype, device, generator)
+            for i, kind in enumerate(kinds)})
 
-def _run_group(group: nn.ModuleDict, x: torch.Tensor, positions, angles,
-               state: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    for name, sub in group.items():
-        x = sub(x, positions, angles, None if state is None else state[name])
-    return x
+    def forward(self, x: torch.Tensor, positions, angles,
+                state: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        for name, sub in self.items():
+            x = sub(x, positions, angles,
+                    None if state is None else state[name])
+        return x
 
 
 class Transformer(nn.Module):
@@ -285,10 +329,10 @@ class Transformer(nn.Module):
             n_blocks, tail = hybrid_pattern(cfg)
             pat = cfg.recurrent.block_pattern
             self.blocks = nn.ModuleList(
-                _hybrid_group(cfg, pat, dtype, self.device, gen)
+                HybridGroup(cfg, pat, dtype, self.device, gen)
                 for _ in range(n_blocks))
             if tail:
-                self.tail = _hybrid_group(cfg, tail, dtype, self.device, gen)
+                self.tail = HybridGroup(cfg, tail, dtype, self.device, gen)
         else:
             block = RWKVBlock if self.recurrent else DenseBlock
             self.blocks = nn.ModuleList(
@@ -340,20 +384,20 @@ class Transformer(nn.Module):
         info = {}
         if self.recurrent:  # every layer from a zero state
             for block in self.blocks:
-                x = block(x)
+                x = remat(cfg, block, x)
         else:
             positions = torch.arange(x.shape[1], dtype=torch.int32,
                                      device=x.device)
             angles = self._angles(positions)
             if cfg.family == "hybrid":
                 for block in self.blocks:
-                    x = _run_group(block, x, positions, angles)
-                if self.tail is not None:
-                    x = _run_group(self.tail, x, positions, angles)
+                    x = remat(cfg, block, x, positions, angles)
+                if self.tail is not None:   # not remat'd, as the reference
+                    x = self.tail(x, positions, angles)
             else:
                 counts = []
                 for block in self.blocks:
-                    x, a, c = block(x, positions, angles)
+                    x, a, c = remat(cfg, block, x, positions, angles)
                     aux = aux + a
                     counts.append(c)
                 info["expert_counts"] = torch.stack(counts)
@@ -382,10 +426,9 @@ class Transformer(nn.Module):
         angles = self._angles(positions)
         if self.cfg.family == "hybrid":
             for block, st in zip(self.blocks, state["blocks"]):
-                x = _run_group(block, x, positions, angles, st)
+                x = block(x, positions, angles, st)
             if self.tail is not None:
-                x = _run_group(self.tail, x, positions, angles,
-                               state["tail"])
+                x = self.tail(x, positions, angles, state["tail"])
             return self._head(x), state
         for block, cache in zip(self.blocks, state["layers"]):
             x = block(x, positions, angles, cache)[0]

@@ -69,14 +69,15 @@ def apply_updates(cfg: AdamWConfig, params: Tree, grads: Tree,
                   state: Dict[str, object]
                   ) -> Tuple[Tree, Dict[str, object], Dict[str, torch.Tensor]]:
     """One AdamW step: ``(new_params, new_state, {"grad_norm", "lr"})``.
-    Clipping scales the gradients before the moments; the grad norm
-    reported is the one before clipping."""
+    Clipping scales the gradients before the moments, in float32 (the
+    reference's ``g * scale`` promotes a bf16 gradient to float32); the
+    grad norm reported is the one before clipping."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-        grads = {k: g * scale for k, g in grads.items()}
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
@@ -85,6 +86,8 @@ def apply_updates(cfg: AdamWConfig, params: Tree, grads: Tree,
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         gf = grads[k].float()
+        if scale is not None:
+            gf = gf * scale
         m = b1 * state["m"][k] + (1 - b1) * gf
         v = b2 * state["v"][k] + (1 - b2) * gf * gf
         mh = m / bc1

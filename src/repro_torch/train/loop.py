@@ -1,14 +1,18 @@
 """Training loop: the step function, the traced step, checkpoints.
 
 The PyTorch port of the reference's ``repro/train/loop.py`` for every
-family but ssm, which waits for a WKV-6 gradient (the hybrid family trains
-through its plain RG-LRU scan, encdec's cross-attention through the
-attention kernel's autograd Function; a vlm or encdec batch carries its
-frontend's ``embeds``: ``data.batch_for_model``).
+family (the ssm family trains through the WKV-6 kernel's autograd
+Function, the hybrid family through its plain RG-LRU scan, encdec's
+cross-attention through the attention kernel's autograd Function; a vlm
+or encdec batch carries its frontend's ``embeds``:
+``data.batch_for_model``).  The models recompute their blocks in the
+backward as the config's ``remat_policy`` says
+(``models.transformer.remat``).
 Parameters are a dict of tensors keyed as the model's state dict; the
 model module itself is a skeleton on the ``meta`` device that its
 family's ``loss_fn`` (``models.family_module``) runs with those tensors
-swapped in (``torch.func.functional_call``), and gradients come from
+swapped in (held through the backward, which recomputes blocks: see
+:func:`value_and_grad`), and gradients come from
 ``torch.autograd.grad`` with respect to detached leaf copies.  Every
 step function returns new tensors and updates nothing in place: a traced
 step runs each region more than once on the same input state
@@ -37,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (RegionTrace, RegionTree, TimedRegionRunner,
@@ -53,14 +58,8 @@ Params = Dict[str, torch.Tensor]
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for what cannot train yet: a family the reference does not
-    know (``ValueError``) and the ssm family, whose WKV-6 kernel has no
-    gradient (on the card its output would carry none)."""
+    """Raise ``ValueError`` for a family the reference does not know."""
     family_module(cfg)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: ssm training needs a gradient of the WKV-6 kernel "
-            f"(ROADMAP.md queue 1, item 6)")
 
 
 def _skeleton(cfg: ModelConfig) -> torch.nn.Module:
@@ -76,10 +75,16 @@ def value_and_grad(model: torch.nn.Module, params: Params,
     """``(total, info, grads)`` of the loss at ``params``, differentiated
     through detached leaf copies (``params`` gains no graph or ``.grad``).
     ``batch`` holds ``tokens``, ``labels``, optionally ``mask`` and, for
-    a vlm or encdec model, ``embeds``."""
+    a vlm or encdec model, ``embeds``.
+
+    The leaves stay swapped into ``model`` through the backward too, where
+    ``remat``'s checkpoints recompute blocks: ``functional_call`` swaps
+    them in for one module call only, so this holds the swap it is built
+    on (``_reparametrize_module``) around both."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-    total, info = family_module(model.cfg).loss_fn(model, leaves, batch)
-    grads = torch.autograd.grad(total, list(leaves.values()))
+    with _reparametrize_module(model, leaves, tie_weights=True, strict=True):
+        total, info = family_module(model.cfg).loss_fn(model, None, batch)
+        grads = torch.autograd.grad(total, list(leaves.values()))
     return (total.detach(), {k: v.detach() for k, v in info.items()},
             dict(zip(leaves, grads)))
 

@@ -200,8 +200,9 @@ def test_cost_of_is_the_kernels_count_not_the_plain_versions():
 def test_train_leaf_flops_include_attention():
     """The fwd_bwd leaf of a smoke train step: its FLOPs are the matrix
     products FlopCounterMode sees (forward, backward, the backward
-    formulas' einsums) plus each kernel call's analytic count — attention's
-    4·dh·H·B·(causal pairs) per layer among them."""
+    formulas' einsums, the blocks' recompute) plus each kernel call's
+    analytic count — attention's 4·dh·H·B·(causal pairs) per layer among
+    them."""
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, host_batch, to_device
     from repro_torch.optim import AdamWConfig, init_opt_state
@@ -233,7 +234,15 @@ def test_train_leaf_flops_include_attention():
     # 2L + 1 RMSNorm calls of 4 operations an element
     attn_fwd = L * 4 * dh * H * B * (S * (S + 1) // 2)
     rms = (2 * L + 1) * 4 * T * d
-    assert flops == 6 * mm + attn_bwd + attn_fwd + rms
+    # ... and, under the config's remat_policy "nothing", every block's
+    # forward once more in the backward: its two RMSNorms, its attention
+    # and its products up to the last one whose output the backward reads
+    # (the MLP's down projection is not, only its inputs are, so the
+    # recompute stops before it, as XLA drops it from the reference's)
+    assert cfg.remat_policy == "nothing"
+    recompute = 2 * T * L * (4 * d * H * dh + 2 * d * ff) + attn_fwd \
+        + 2 * L * 4 * T * d
+    assert flops == 6 * mm + attn_bwd + attn_fwd + rms + recompute
 
 
 # -- on the card ---------------------------------------------------------------

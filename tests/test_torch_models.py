@@ -21,7 +21,7 @@ import torch
 from repro.configs import get_arch as ref_arch
 from repro.models import build as ref_build
 from repro.models import layers as ref_layers
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.models import build, layers, transformer
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 
@@ -234,9 +234,8 @@ def test_seeded_init_mirrors_dense_init():
 
 
 def test_other_families_raise_naming_the_queue():
-    """Every family of the reference builds; a family it does not know
-    raises ValueError in both packages, and the ssm family still cannot
-    train (ROADMAP.md queue 1, item 6)."""
+    """Every family of the reference builds and trains; a family it does
+    not know raises ValueError in both packages."""
     from repro_torch.train.loop import check_trainable
     cfg = get_arch("gemma-7b").smoke.with_(family="diffusion")
     with pytest.raises(ValueError, match="unknown model family"):
@@ -246,12 +245,17 @@ def test_other_families_raise_naming_the_queue():
     with pytest.raises(ValueError):
         ref_build(ref_arch("gemma-7b").smoke.with_(family="diffusion")
                   ).init(jax.random.key(0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        check_trainable(get_arch("rwkv6-3b").smoke)
-    for arch in ("phi-3-vision-4.2b", "recurrentgemma-9b",
+    with pytest.raises(ValueError, match="unknown model family"):
+        check_trainable(cfg)
+    for arch in ("rwkv6-3b", "phi-3-vision-4.2b", "recurrentgemma-9b",
                  "seamless-m4t-medium"):
         check_trainable(get_arch(arch).smoke)
         assert build(get_arch(arch).smoke, "cpu").init(0) is not None
+    families = set()
+    for name in list_archs():
+        check_trainable(get_arch(name).full)
+        families.add(get_arch(name).full.family)
+    assert families >= set(transformer.FAMILIES) - {"audio"}
 
 
 def test_build_defaults_to_the_card():

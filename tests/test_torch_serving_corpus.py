@@ -9,6 +9,7 @@ reference's ``Verdict.doc()``, completed requests and onset window (the
 analyzers on the kernel lane's plain version, ``device="cpu"``, and on the
 exact lane).  chip_smoke's phase 18 is rehearsed at seed 0."""
 import dataclasses
+import gc
 import importlib.util
 import pathlib
 
@@ -134,3 +135,14 @@ def test_new_entries_phase_rehearsed():
         "restored_step"] == 2
     assert res["runs"]["train/straggler-remesh-recovery@0"]["action"] == \
         "remesh"
+
+
+def test_chip_smoke_freezes_the_heap_around_its_corpus_phases():
+    """The corpus phases run with the earlier phases' objects frozen, so
+    a full collection inside an entry scans only the entry's own (one
+    over phase 17's objects, timed inside a healthy shard, read as a
+    straggler there); after the block they can be collected again."""
+    cs = _chip_smoke()
+    with cs.heap_frozen():
+        assert gc.get_freeze_count() > 0
+    assert gc.get_freeze_count() == 0

@@ -184,6 +184,46 @@ def test_apply_updates_matches_the_reference(clip_norm):
     _close_rel(tm["lr"], rm["lr"], OPT_RTOL)
 
 
+def test_apply_updates_of_bf16_params_rounds_as_the_reference():
+    """bf16 parameters and gradients, float32 moments, a clipping step:
+    the clipped gradient stays float32 (JAX promotes bf16 * float32 to
+    float32), so the moments match the reference's within 4e-6 relative
+    (they scale with the clip factor, v with its square, and the two
+    packages sum the squared norm in different orders: 6.6e-7 apart
+    here; a gradient rounded to bf16 after the scaling would be 2^-9 off)
+    and each new bf16 parameter is the reference's or one rounding step
+    from it."""
+    rng = np.random.default_rng(8)
+    shapes = {"a": (64, 32), "b": (32,)}
+    p, g = ({k: rng.standard_normal(s).astype(np.float32)
+             for k, s in shapes.items()} for _ in range(2))
+    kw = dict(lr=1e-2, warmup_steps=1, total_steps=20, clip_norm=1.0)
+    state = {"m": {k: np.zeros(s, np.float32) for k, s in shapes.items()},
+             "v": {k: np.zeros(s, np.float32) for k, s in shapes.items()}}
+    rp, rs, rm = ref_apply_updates(
+        RefAdamWConfig(**kw),
+        {k: jnp.asarray(x, jnp.bfloat16) for k, x in p.items()},
+        {k: jnp.asarray(x, jnp.bfloat16) for k, x in g.items()},
+        {"m": {k: jnp.asarray(x) for k, x in state["m"].items()},
+         "v": {k: jnp.asarray(x) for k, x in state["v"].items()},
+         "step": jnp.int32(0)})
+    assert float(rm["grad_norm"]) > 1.0          # the step clips
+    tp, ts, tm = apply_updates(
+        AdamWConfig(**kw),
+        {k: torch.from_numpy(x).bfloat16() for k, x in p.items()},
+        {k: torch.from_numpy(x).bfloat16() for k, x in g.items()},
+        {"m": _tensors(state["m"]), "v": _tensors(state["v"]),
+         "step": torch.tensor(0, dtype=torch.int32)})
+    for k in shapes:
+        assert tp[k].dtype == torch.bfloat16 and ts["m"][k].dtype == \
+            torch.float32
+        _close_rel(ts["m"][k], rs["m"][k], 4e-6)
+        _close_rel(ts["v"][k], rs["v"][k], 4e-6)
+        got = tp[k].float().numpy()
+        want = np.asarray(rp[k].astype(jnp.float32))
+        assert np.all(np.abs(got - want) <= 2.0 ** -7 * np.abs(want))
+
+
 def test_apply_updates_is_pure():
     params = {"w": torch.ones(3)}
     state = init_opt_state(params)
@@ -288,16 +328,16 @@ def test_loss_takes_the_chunked_path_above_two_to_the_26(monkeypatch):
 
 # -- trainers -----------------------------------------------------------------
 
-def test_five_steps_from_carried_weights_track_the_reference():
-    rcfg = ref_arch("st-100m").smoke
+def _five_steps_track_the_reference(arch):
+    rcfg, cfg = ref_arch(arch).smoke, get_arch(arch).smoke
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=50)
-    dkw = dict(seq_len=32, global_batch=4, vocab=CFG.vocab)
+    dkw = dict(seq_len=32, global_batch=4, vocab=cfg.vocab)
     rt = RefTrainer(rcfg, RefAdamWConfig(**kw), RefDataConfig(**dkw),
                     RefTrainerConfig(steps=5, ckpt_dir=None, ckpt_every=0,
                                      seed=0))
     init = jax.tree.map(np.asarray, rt.params)
     want = [h["loss"] for h in rt.run()]
-    t = Trainer(CFG, AdamWConfig(**kw), DataConfig(**dkw),
+    t = Trainer(cfg, AdamWConfig(**kw), DataConfig(**dkw),
                 TrainerConfig(steps=5, ckpt_dir=None, ckpt_every=0),
                 device="cpu")
     zeros = jax.tree.map(np.zeros_like, init)
@@ -306,6 +346,16 @@ def test_five_steps_from_carried_weights_track_the_reference():
         "step": torch.tensor(0, dtype=torch.int32)}})
     got = [h["loss"] for h in t.run()]
     _close_rel(got, want, TRAJ_RTOL)
+
+
+def test_five_steps_from_carried_weights_track_the_reference():
+    _five_steps_track_the_reference("st-100m")
+
+
+def test_five_rwkv_steps_from_carried_weights_track_the_reference():
+    """The ssm family: the gradient through the WKV-6 Function, under the
+    default remat policy."""
+    _five_steps_track_the_reference("rwkv6-3b")
 
 
 def test_traced_step_advances_the_params_exactly_once():
@@ -339,11 +389,27 @@ def test_trainer_runs_on_the_card_by_default():
 
 
 def test_ssm_training_waits_for_a_wkv6_gradient():
-    with pytest.raises(NotImplementedError, match="WKV-6"):
-        Trainer(get_arch("rwkv6-3b").smoke, AdamWConfig(), DataConfig(),
-                TrainerConfig(steps=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="WKV-6"):
-        make_train_step(get_arch("rwkv6-3b").smoke, AdamWConfig())
+    """The wait is over: the ssm family trains through the WKV-6 kernel's
+    autograd Function.  A Trainer of rwkv6-smoke takes two steps with
+    finite losses, and one step of ``make_train_step`` moves every
+    parameter, the decay's (``w0``, the lora) and the bonus ``u``
+    among them."""
+    cfg = get_arch("rwkv6-3b").smoke
+    t = Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4),
+                DataConfig(seq_len=16, global_batch=2, vocab=cfg.vocab),
+                TrainerConfig(steps=2, ckpt_every=0), device="cpu")
+    hist = t.run()
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    params = {k: p.detach() for k, p in
+              transformer.init(cfg, 0, "cpu").named_parameters()}
+    batch = to_device(host_batch(DataConfig(seq_len=16, global_batch=2,
+                                            vocab=cfg.vocab), 0), "cpu")
+    new, _, m = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1))(
+        params, init_opt_state(params), batch)
+    assert np.isfinite(float(m["loss"]))
+    for name in ("blocks.0.block.u", "blocks.0.block.w0",
+                 "blocks.1.block.w_lora_b", "blocks.1.block.wk"):
+        assert not torch.equal(new[name], params[name]), name
 
 
 def test_moe_training_waits_for_the_moe_family():
