@@ -18,8 +18,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bitwise equal to per-seed rows; the path ``seed_rows_plan`` picks for
    each shape, and the profiled CUDA symbol of each k (k = 1 on the row
    path); CUDA-event and profiler times of the kernel, the plain version
-   and one PyTorch expression of the same function (``addmm``), beside
-   the kernel's bound;
+   and one PyTorch expression of the same function (the torch lane's
+   ``addmm``), beside the kernel's bound;
 4. corpus: the 19 synthetic fault-corpus entries through
    ``AutoAnalyzer(distance_backend="kernel")`` on the card; the verdict
    snapshot must equal the committed ``VERDICTS_synthetic.json``; then
@@ -200,11 +200,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (step 0 excluded), tokens/s, the run's
    peak memory and, apart, one forward and backward's peak over the
    memory held before it; each step's loss equal across the policies
-   within 1e-5 relative.
+   within 1e-5 relative;
+29. the torch lane (one PyTorch ``addmm`` in full float32): its seed rows
+   at the fleet shape for k = 1, 8, 64, 256 against float64 within its
+   own order-free bound, once with the caller's TF32 on (switched off and
+   restored); the fleet trace analyzed on the numpy, kernel and torch
+   lanes with equal verdicts, each lane's analysis wall, seed-row
+   launches and re-decided candidacies logged; the 19 synthetic entries
+   on the torch lane equal to ``VERDICTS_synthetic.json``;
+30. the command-line twins in child processes: ``python -m
+   repro_torch.cli.run_bench --grid default --out <tmp>`` with every
+   kernel and torch device row present, then ``--check <tmp>`` exiting
+   0; ``repro_torch.cli.run_corpus --backend synthetic
+   --distance-backend torch`` passing 19/19, and printing the same table
+   under ``--jobs 4`` apart from wall_s;
+31. the benchmark and example twins, in this process (no process
+   start-up each): ``repro_torch.bench.run --only paper`` on the numpy,
+   kernel and torch lanes with equal ``derived`` columns; ``--only
+   kernels`` with every row finite and positive (a kernel row fails
+   unless its kernel launched); ``repro_torch.examples.quickstart`` and
+   ``moe_imbalance`` returning from ``main``.  The whole script's time
+   is logged.
 
-Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21, 22-24 and 26-28 count
-the kernels' launches from 0 and fail if the main path never launched
-them (phase 11's tail counts its own in the child); they also record the
+Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21, 22-24, 26-28 and 29
+count the kernels' launches from 0 and fail if the main path never
+launched them (phase 11's tail counts its own in the child; phase 29's
+torch lane must launch none, and phase 31's kernel bench checks each of
+its kernel rows); they also record the
 seed-row launches by seed count k (``SEED_COUNTS``) and the kernel
 lane's candidacies that its float32 error bound could not settle and
 re-decided on the exact lane (``AutoAnalyzer.decisions``).  A served trace whose verdicts differ
@@ -336,11 +358,11 @@ def bound_ms(m: int, n: int, k: int) -> tuple:
 
 
 def library_rows(points, sq, idx):
-    """One PyTorch expression of the same function (timed as a yardstick
-    only; the port never calls it)."""
-    il = idx.long()
-    return (sq[il, None] + sq[None, :]).addmm(
-        points[il], points.T, alpha=-2).clamp_min(0)
+    """One PyTorch expression of the same function: the torch lane's own
+    ``addmm`` (``core/clustering.py::torch_seed_rows``, full float32), so
+    the library column times the code that ships."""
+    from repro_torch.core.clustering import torch_seed_rows
+    return torch_seed_rows(points, sq, idx)
 
 
 def _within(got, want, scale, c: float, what: str) -> tuple:
@@ -541,17 +563,20 @@ def heap_frozen():
         gc.unfreeze()
 
 
-def corpus_phase(device) -> dict:
-    """The 19 synthetic corpus entries on the kernel lane, held to the
-    committed verdict snapshot.  Returns the kernel's launch count, its
-    launches by seed count and the lane's re-decided candidacies."""
+def corpus_phase(device, lane: str = "kernel") -> dict:
+    """The 19 synthetic corpus entries on ``lane`` (the kernel lane, or
+    the torch lane), held to the committed verdict snapshot as
+    ``snapshot_verdicts --check`` holds them.  Returns the seed-row
+    kernel's launch count (the kernel lane must launch it on the card, the
+    torch lane never), its launches by seed count and the lane's
+    re-decided candidacies."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.cli.snapshot_verdicts import drift, snapshot
     from repro_torch.core.clustering import get_distance_backend
     with open(ROOT / "VERDICTS_synthetic.json") as f:
         baseline = json.load(f)
-    backend = get_distance_backend("kernel", device)
+    backend = get_distance_backend(lane, device)
     K.reset_launches()
     t0 = time.perf_counter()
     current = snapshot(0, backend, device)
@@ -560,12 +585,15 @@ def corpus_phase(device) -> dict:
     seed_counts = dict(K.SEED_COUNTS)
     bad = drift(baseline, current)
     if bad or set(current) != set(baseline):
-        raise AssertionError(f"kernel-lane verdicts drifted from "
+        raise AssertionError(f"{lane}-lane verdicts drifted from "
                              f"VERDICTS_synthetic.json: {bad}")
     # On the CPU (a rehearsal) the wrapper runs its plain version, which
     # launches nothing.
-    if launches == 0 and torch.device(device).type == "cuda":
+    if lane == "kernel" and launches == 0 and \
+            torch.device(device).type == "cuda":
         raise AssertionError("the corpus never launched the kernel")
+    if lane == "torch" and launches:
+        raise AssertionError("the torch lane launched the seed-row kernel")
     return {"entries": len(current), "launches": launches, "wall_s": wall,
             "seed_counts": seed_counts, "decisions": dict(backend.decisions)}
 
@@ -3233,6 +3261,316 @@ def ssm_training_phases() -> dict:
             "remat": remat}
 
 
+# -- phases 29-31 ------------------------------------------------------------
+
+LANES = ("numpy", "kernel", "torch")
+
+
+def lane_inputs(m: int, n: int, k: int):
+    """Phase 3's fleet-like float64 points (the same seeded matrix), their
+    squared norms and k distinct seeds, on the host: a lane prepares its
+    float32 copies from the float64 matrix itself."""
+    import numpy as np
+    rng = np.random.default_rng(7919 * k + 31 * n + m)
+    W = 100.0 + rng.random((m, n))
+    W[: m // 8] *= 5.0
+    idx = rng.choice(m, size=k, replace=False)
+    return W, np.einsum("ij,ij->i", W, W), idx
+
+
+def torch_lane_rows_phase(device, m: int = FLEET_M, n: int = FLEET_N,
+                          ks=KERNEL_KS) -> dict:
+    """The torch lane's seed rows at each k against a float64 evaluation
+    on the same device: every element within the lane's own bound,
+    ``row_error_coef(n)·(|W_s|² + |W_q|²)``.  Each k twice: with the
+    caller's TF32 off, and on (the lane must switch it off around its
+    product and restore it).  Beside them the lane's product with TF32 on
+    and no guard, its error logged in units of the same bound."""
+    import torch
+    from repro_torch.core.clustering import get_distance_backend
+    from repro_torch.kernels.distance import row_error_coef
+    be = get_distance_backend("torch", device)
+    coef = be.row_error_coef(n)
+    out = {"coef_u": coef * 2 ** 24, "kernel_coef_u": row_error_coef(n)
+           * 2 ** 24, "ks": {}}
+    caller = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for k in ks:
+            W, sq, idx = lane_inputs(m, n, k)
+            pts, sq32 = handle = be.prepare(W, sq)
+            Wd = torch.as_tensor(W, device=device)
+            sqd = torch.as_tensor(sq, device=device)
+            ii = torch.as_tensor(idx, device=device).long()
+            exact = (sqd[ii, None] + sqd[None, :]).addmm(
+                Wd[ii], Wd.T, alpha=-2).clamp_min(0)
+            bound = coef * (sqd[ii, None] + sqd[None, :])
+            res = {}
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                got = be.device_rows(handle, idx).double()
+                if torch.backends.cuda.matmul.allow_tf32 != tf32:
+                    raise AssertionError("the torch lane did not restore "
+                                         "the caller's TF32 setting")
+                ratio = float(((got - exact).abs() / bound).max())
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        f"torch lane rows at (m, n, k) = {(m, n, k)}, "
+                        f"caller's TF32 {tf32}: error {ratio:.4g} of the "
+                        f"lane's bound")
+                res["tf32_on" if tf32 else "tf32_off"] = ratio
+            torch.backends.cuda.matmul.allow_tf32 = True
+            raw = (sq32[ii, None] + sq32[None, :]).addmm(
+                pts[ii], pts.T, alpha=-2).clamp_min(0).double()
+            res["unguarded_tf32"] = float(((raw - exact).abs()
+                                           / bound).max())
+            out["ks"][k] = res
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = caller
+    return out
+
+
+def lanes_fleet_phase(m: int, n: int, straggler_procs: int, device,
+                      lanes=LANES) -> dict:
+    """Phase 5's fleet trace analyzed on every lane: each verdict doc
+    equal to the numpy lane's; per lane the analysis wall (host clock,
+    ending in a device sync), the seed-row kernel's launches (the kernel
+    lane launches it, the torch lane never) and the candidacies flagged
+    and re-decided on the exact lane."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import AutoAnalyzer
+    _, collector, _ = fleet_collector(m, n, straggler_procs)
+    trace = collector.collect_trace()
+    tree = trace.tree()
+    on_card = torch.device(device).type == "cuda"
+    out, docs = {}, {}
+    for lane in lanes:
+        an = AutoAnalyzer(tree, distance_backend=lane, device=device)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        docs[lane] = an.analyze_trace(trace).verdict.doc()
+        if on_card:
+            torch.cuda.synchronize()
+        out[lane] = {"wall_s": time.perf_counter() - t0,
+                     "launches": K.LAUNCHES["multi_seed_rows"],
+                     "decisions": an.decisions}
+    for lane in lanes:
+        if docs[lane] != docs["numpy"]:
+            raise AssertionError(f"fleet verdicts differ between the "
+                                 f"{lane} and numpy lanes:\n"
+                                 f"{docs[lane]}\n{docs['numpy']}")
+    if on_card and "kernel" in out and out["kernel"]["launches"] == 0:
+        raise AssertionError("the kernel lane never launched the kernel")
+    if "torch" in out and out["torch"]["launches"]:
+        raise AssertionError("the torch lane launched the seed-row kernel")
+    return out
+
+
+def child(args, timeout: int = 600) -> subprocess.CompletedProcess:
+    """``python -m <args>`` from the checkout's root with its ``src`` on
+    the path; raises unless it exits 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    r = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(args)} exited "
+                             f"{r.returncode}:\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    return r
+
+
+WALL_S = re.compile(r" +\d+\.\d{3}  (ok|FAIL)$")
+
+
+def corpus_table(stdout: str) -> list:
+    """run_corpus's table with its wall_s column masked."""
+    return [WALL_S.sub(r" WALL  \1", line) for line in stdout.splitlines()]
+
+
+def cli_twins_phase(device, grid: str = "default", jobs: int = 4) -> dict:
+    """The command-line twins, each in a child process: ``run_bench``
+    writes the grid (every kernel and torch device row present) and
+    ``--check`` against its own output passes; ``run_corpus`` on the
+    torch lane passes 19/19, and under ``--jobs`` prints the same table
+    apart from wall_s."""
+    from repro_torch.bench.analyzer_bench import DEVICE_LANES, GRIDS
+    dev = ["--device", str(device)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "bench.json")
+        t0 = time.perf_counter()
+        child(["repro_torch.cli.run_bench", "--grid", grid, "--out", path,
+               *dev])
+        out["bench_s"] = time.perf_counter() - t0
+        with open(path) as f:
+            doc = json.load(f)
+        spec = GRIDS[grid]
+        want = [f"algo2/m{m}/n{n}/{lane}" for m, n in spec["algo2_device"]
+                for lane in DEVICE_LANES] + \
+            [f"seedrows/m{m}/n{n}/{lane}" for m, n in spec["seedrows"]
+             for lane in ("numpy",) + DEVICE_LANES]
+        missing = [w for w in want if w not in doc["entries"]]
+        if missing:
+            raise AssertionError(f"run_bench left out device rows {missing}")
+        out["device_rows_ms"] = {w: doc["entries"][w]["seconds"] * 1e3
+                                 for w in want}
+        out["meta"] = doc["meta"]
+        t0 = time.perf_counter()
+        out["check"] = child(["repro_torch.cli.run_bench", "--check", path,
+                              *dev]).stdout.strip().splitlines()[-1]
+        out["check_s"] = time.perf_counter() - t0
+    argv = ["repro_torch.cli.run_corpus", "--backend", "synthetic",
+            "--distance-backend", "torch", *dev]
+    t0 = time.perf_counter()
+    one = child(argv).stdout
+    out["corpus_s"] = time.perf_counter() - t0
+    if "19/19 entries passed" not in one:
+        raise AssertionError(f"run_corpus on the torch lane:\n{one}")
+    t0 = time.perf_counter()
+    many = child(argv + ["--jobs", str(jobs)]).stdout
+    out["corpus_jobs_s"] = time.perf_counter() - t0
+    if corpus_table(many) != corpus_table(one):
+        raise AssertionError(f"run_corpus --jobs {jobs} printed another "
+                             f"table:\n{many}\nagainst\n{one}")
+    return out
+
+
+def csv_rows(stdout: str) -> list:
+    """(name, us_per_call, derived) of ``bench.run``'s CSV (a derived
+    string may hold commas)."""
+    lines = stdout.strip().splitlines()
+    if lines[0] != "name,us_per_call,derived":
+        raise AssertionError(f"bench.run printed no CSV header: {lines[:3]}")
+    rows = []
+    for line in lines[1:]:
+        name, us, derived = line.split(",", 2)
+        rows.append((name, float(us), derived))
+    return rows
+
+
+def in_process(module: str, args) -> str:
+    """What ``python -m <module> <args>`` prints, run in this process (the
+    kernels already loaded, no process start-up); raises unless its
+    ``main`` returns 0 or None, as ``sys.exit`` would exit 0."""
+    import contextlib
+    import io
+    main = importlib.import_module(module).main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(args))
+    if rc not in (0, None):
+        raise AssertionError(f"{module} {' '.join(args)} returned {rc}")
+    return buf.getvalue()
+
+
+def bench_run(args) -> str:
+    return in_process("repro_torch.bench.run", args)
+
+
+def bench_examples_phase(device, kernels: bool = True,
+                         examples=("quickstart", "moe_imbalance")) -> dict:
+    """The benchmark and example twins, in this process: the paper
+    tables' ``derived`` equal on every lane; the kernel bench's rows
+    finite and positive (a kernel row raises unless its kernel launched);
+    the examples' ``main`` returns (their exit 0)."""
+    import math
+    out = {"paper_s": {}, "paper": {}}
+    derived = {}
+    for lane in LANES:
+        t0 = time.perf_counter()
+        rows = csv_rows(bench_run(["--only", "paper", "--lane", lane,
+                                   "--device", str(device)]))
+        out["paper_s"][lane] = time.perf_counter() - t0
+        derived[lane] = [(name, d) for name, _, d in rows]
+        out["paper"][lane] = {name: us for name, us, _ in rows}
+    for lane in LANES:
+        if derived[lane] != derived["numpy"]:
+            raise AssertionError(f"paper tables differ on the {lane} lane: "
+                                 f"{derived[lane]} against "
+                                 f"{derived['numpy']}")
+    out["derived"] = dict(derived["numpy"])
+    if kernels:
+        t0 = time.perf_counter()
+        rows = csv_rows(bench_run(["--only", "kernels", "--device",
+                                   str(device)]))
+        out["kernels_s"] = time.perf_counter() - t0
+        bad = [r for r in rows if not (math.isfinite(r[1]) and r[1] > 0)]
+        if bad or not rows:
+            raise AssertionError(f"kernel bench rows not finite and "
+                                 f"positive: {bad or rows}")
+        out["kernels"] = rows
+    for name in examples:
+        t0 = time.perf_counter()
+        printed = in_process(f"repro_torch.examples.{name}",
+                             ["--device", str(device)])
+        out[name] = {"s": time.perf_counter() - t0,
+                     "tail": printed.strip().splitlines()[-3:]}
+    return out
+
+
+def lane_phases() -> dict:
+    """Phases 29-31 on the card, logged."""
+    # 29. the torch lane
+    t0 = time.perf_counter()
+    rows = torch_lane_rows_phase("cuda")
+    for k, r in rows["ks"].items():
+        log(f"[29] torch lane rows ({FLEET_M}, {FLEET_N}, k = {k}) vs "
+            f"float64: at most {r['tf32_off']:.4g} of the lane's bound "
+            f"({rows['coef_u']:.2f} u per unit of norm; the kernel lane's "
+            f"{rows['kernel_coef_u']:.2f} u), {r['tf32_on']:.4g} with the "
+            f"caller's TF32 on (switched off and restored); the same "
+            f"product unguarded under TF32 {r['unguarded_tf32']:.4g}")
+    fleet = lanes_fleet_phase(FLEET_M, FLEET_N, 2048, "cuda")
+    for lane, r in fleet.items():
+        d = r["decisions"]
+        log(f"[29] fleet {FLEET_M}x{FLEET_N} on the {lane} lane: verdict "
+            f"equal to the numpy lane's; analysis {r['wall_s']:.4f} s; "
+            f"{r['launches']} seed-row kernel launches; "
+            + ("exact lane" if d is None else
+               f"{d['flagged']} candidacies flagged, {d['redecided']} "
+               f"trials re-decided in {d['redecide_s']:.6f} s, "
+               f"{d['kmeans_redecided']} Lloyd loops re-run"))
+    with heap_frozen():
+        corpus = corpus_phase("cuda", lane="torch")
+    log(f"[29] corpus: {corpus['entries']} synthetic entries match "
+        f"VERDICTS_synthetic.json on the torch lane; {corpus['launches']} "
+        f"seed-row kernel launches; re-decided on the exact lane "
+        f"{corpus['decisions']}; {corpus['wall_s']:.3f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 30. the command-line twins
+    t0 = time.perf_counter()
+    cli = cli_twins_phase("cuda")
+    log(f"[30] run_bench --grid default: device rows (ms) "
+        f"{json.dumps(cli['device_rows_ms'])}; meta "
+        f"{json.dumps(cli['meta'])}; {cli['bench_s']:.1f} s; --check: "
+        f"{cli['check']} ({cli['check_s']:.1f} s)")
+    log(f"[30] run_corpus --backend synthetic --distance-backend torch: "
+        f"19/19 in {cli['corpus_s']:.1f} s; --jobs 4 the same table in "
+        f"{cli['corpus_jobs_s']:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 31. the benchmark and example twins
+    t0 = time.perf_counter()
+    bench = bench_examples_phase("cuda")
+    log(f"[31] bench.run --only paper: derived equal on the {LANES} lanes "
+        f"({json.dumps(bench['paper_s'])} s): "
+        f"{json.dumps(bench['derived'])}")
+    log(f"[31] bench.run --only kernels ({bench['kernels_s']:.1f} s), "
+        f"us per call (CUDA events):")
+    for name, us, derived in bench["kernels"]:
+        log(f"    {name:36s} {us:12.3f}  {derived}")
+    for name in ("quickstart", "moe_imbalance"):
+        log(f"[31] examples.{name} ran in {bench[name]['s']:.1f} s: "
+            f"{bench[name]['tail']}")
+    log(f"[31] phase {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "fleet": fleet, "corpus": corpus, "cli": cli,
+            "bench": bench}
+
+
 def log_family_parity(phase: str, cfg, res: dict, wall: float) -> None:
     f, d, t = res["forward"], res["decode"], res["train"]
     enc = (f"; encoder output max|card-host| {f['encoder_err']:.6g} of "
@@ -3278,6 +3616,7 @@ def log_served(phase: str, argv, res: dict) -> None:
 
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the "
               "card", file=sys.stderr)
@@ -3720,6 +4059,9 @@ def main() -> int:
     # 25-28. ssm training and the remat policy
     ssm = ssm_training_phases()
 
+    # 29-31. the torch lane, the command-line, benchmark and example twins
+    lanes = lane_phases()
+
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
         "name": "multi_seed_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3847,6 +4189,15 @@ def main() -> int:
                   "step_shares": ssm["rtrained"]["shares"]},
     })
     rms["launches_train_rwkv6"] = ssm["rtrained"]["launches"]["rmsnorm"]
+    kernels[0]["library"] = "core/clustering.py::torch_seed_rows (addmm)"
+    kernels[0]["torch_lane"] = {
+        "rows": lanes["rows"], "corpus_decisions":
+        lanes["corpus"]["decisions"],
+        "fleet": {lane: {"wall_s": r["wall_s"], "launches": r["launches"],
+                         "decisions": r["decisions"]}
+                  for lane, r in lanes["fleet"].items()}}
+    log(f"chip_smoke: phases 1-31 passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

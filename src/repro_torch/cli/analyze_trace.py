@@ -47,11 +47,12 @@ def main(argv=None) -> int:
     ap.add_argument("--analyzer-kw", default=None, metavar="JSON",
                     help="AutoAnalyzer kwargs, overriding the trace header")
     ap.add_argument("--distance-backend", default=None,
-                    choices=("numpy", "kernel"),
+                    choices=("numpy", "kernel", "torch"),
                     help="distance backend override (default: the trace "
                          "header's, else the CUDA kernel)")
     ap.add_argument("--device", default=None,
-                    help="torch device of the kernel lane (default: cuda)")
+                    help="device of the kernel and torch lanes "
+                         "(default: cuda)")
     ap.add_argument("--json", action="store_true",
                     help="emit the verdict(s) as JSON instead of the report")
     args = ap.parse_args(argv)

@@ -91,12 +91,13 @@ def main(argv=None) -> int:
     ap.add_argument("--analyzer-kw", default=None, metavar="JSON",
                     help="AutoAnalyzer kwargs, overriding trace headers")
     ap.add_argument("--distance-backend", default=None,
-                    choices=("numpy", "kernel"),
+                    choices=("numpy", "kernel", "torch"),
                     help="distance backend for every run's analyzer "
                          "(default: the trace headers', else the CUDA "
                          "kernel)")
     ap.add_argument("--device", default=None,
-                    help="torch device of the kernel lane (default: cuda)")
+                    help="device of the kernel and torch lanes "
+                         "(default: cuda)")
     ap.add_argument("--workers", type=int, default=4, metavar="N",
                     help="shared worker budget: window analyses per poll "
                          "round, fleet-wide (default 4)")

@@ -3,8 +3,9 @@ or diff the current verdicts against a committed baseline.
 
     PYTHONPATH=src python -m repro_torch.cli.snapshot_verdicts out.json
     PYTHONPATH=src python -m repro_torch.cli.snapshot_verdicts \\
-        --check VERDICTS_synthetic.json [--distance-backend numpy|kernel] \\
-        [--device cpu|cuda] [--seed N]
+        --check VERDICTS_synthetic.json \\
+        [--distance-backend numpy|kernel|torch] [--device cpu|cuda] \\
+        [--seed N]
 
 The port's twin of the reference's ``scripts/snapshot_verdicts.py``, with
 the same snapshot fields, so the repository's committed
@@ -15,8 +16,9 @@ dissimilarity severity, composite_s, disparity severities.
 
 The default lane is the CUDA kernel on the card (``--device`` defaults to
 ``cuda`` and the run fails without one); ``--device cpu`` runs the same
-lane through the kernel's plain version and ``--distance-backend numpy``
-the exact float64 host lane.
+lane through the kernel's plain version, ``--distance-backend torch`` the
+lane of one PyTorch ``addmm`` and ``--distance-backend numpy`` the exact
+float64 host lane.
 
 ``--check`` compares the live verdicts against a baseline file: every
 baseline entry must still exist and match bit-for-bit; entries added since
@@ -101,10 +103,11 @@ def main(argv=None) -> int:
                     help="diff live verdicts against this snapshot; exit "
                          "1 on any drift")
     ap.add_argument("--distance-backend", default="kernel",
-                    choices=("numpy", "kernel"),
+                    choices=("numpy", "kernel", "torch"),
                     help="clustering lane (default: the CUDA kernel)")
     ap.add_argument("--device", default=None,
-                    help="torch device of the kernel lane (default: cuda)")
+                    help="device of the kernel and torch lanes "
+                         "(default: cuda)")
     args = ap.parse_args(argv)
     if args.check:
         if args.out:

@@ -89,12 +89,13 @@ def main(argv=None) -> int:
     ap.add_argument("--analyzer-kw", default=None, metavar="JSON",
                     help="AutoAnalyzer kwargs, overriding the trace header")
     ap.add_argument("--distance-backend", default=None,
-                    choices=("numpy", "kernel"),
+                    choices=("numpy", "kernel", "torch"),
                     help="distance backend for the per-window analyzer "
                          "(default: the trace header's, else the CUDA "
                          "kernel)")
     ap.add_argument("--device", default=None,
-                    help="torch device of the kernel lane (default: cuda)")
+                    help="device of the kernel and torch lanes "
+                         "(default: cuda)")
     ap.add_argument("--follow", action="store_true",
                     help="keep polling until the producer closes the spool")
     ap.add_argument("--interval", type=float, default=1.0, metavar="SEC",

@@ -143,15 +143,16 @@ class AutoAnalyzer:
         self.threshold_frac = threshold_frac
         # Distance backend for the clustering passes: "kernel" (the CUDA
         # seed-row kernel on ``device``; None means the card, and raises
-        # without one) or "numpy" (the exact float64 host lane, which
-        # ignores ``device``) — see clustering.get_distance_backend.
+        # without one), "torch" (one ``addmm`` on ``device``, likewise) or
+        # "numpy" (the exact float64 host lane, which ignores ``device``)
+        # — see clustering.get_distance_backend.
         self.distance_backend = distance_backend
         self._backend = get_distance_backend(distance_backend, device)
         self.device = getattr(self._backend, "device", None)
 
     @property
     def decisions(self) -> Optional[Dict[str, float]]:
-        """The kernel lane's running counts of candidacies its float32
+        """A float32 lane's running counts of candidacies its float32
         bound could not settle and of re-decisions on the exact lane
         (``flagged``, ``redecided``, ``redecide_s``, ``kmeans_redecided``;
         see clustering._Certifier), over every analysis of this analyzer;

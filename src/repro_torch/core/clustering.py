@@ -17,8 +17,9 @@ materializes the m×m pairwise matrix — the greedy loop only ever reads
 the squared-distance rows of its seed points, so rows are computed
 lazily from the Gram identity ``(a-b)² = a²+b²-2ab`` through a pluggable
 distance backend (:func:`get_distance_backend`: exact NumPy float64 by
-default, or the hand-written CUDA seed-row kernel of
-:mod:`repro_torch.kernels.distance` as the device route).
+default, the hand-written CUDA seed-row kernel of
+:mod:`repro_torch.kernels.distance` as the device route, or one PyTorch
+``addmm`` on the device, the twin of the reference's jax lane).
 :class:`IncrementalClusterState` keeps the base rows hot in a small LRU
 cache across the one-column-at-a-time toggles of the paper's Algorithm 2
 and evaluates independent trials in lockstep batches
@@ -29,19 +30,22 @@ This is the PyTorch port of ``repro/core/clustering.py``: the host lanes
 are the reference's code, and the device lane runs on a ``torch.device``
 chosen by the caller (``"cuda"`` unless a caller asks for the CPU).
 
-The kernel lane decides each candidacy ``row <= thr²`` from float32 rows;
-wherever |row - thr²| is within a bound on the float32 error of both
-sides (:class:`_Certifier`), the decision is taken again from the exact
-lane's own float64 rows, so its partitions are the exact lane's.  The
+The two float32 lanes decide each candidacy ``row <= thr²`` from float32
+rows; wherever |row - thr²| is within a bound on the float32 error of
+both sides (:class:`_Certifier`, the lane's own ``row_error_coef``), the
+decision is taken again from the exact lane's own float64 rows, so their
+partitions are the exact lane's.  The
 float64 Lloyd loop on the device is certified the same way
 (:func:`_kmeans_lloyd_torch`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from collections import OrderedDict
+import threading
 import time
+from collections import OrderedDict
 from typing import (Callable, Dict, List, Optional, Sequence,
                     Tuple, Union)
 
@@ -49,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.distance import row_error_coef
+from repro_torch.kernels.distance import INPUT_ERR, U32, row_error_coef
 
 # Severity categories (paper §4.2.2).
 VERY_LOW, LOW, MEDIUM, HIGH, VERY_HIGH = 0, 1, 2, 3, 4
@@ -142,7 +146,8 @@ class ClusterResult:
 # float64 (bit-for-bit with the scalar formula on integer-valued data and
 # is therefore the default the verdict tests pin); the kernel backend
 # computes in float32 on a torch device through the CUDA kernel — the
-# fast route for large m, validated against NumPy by the port's tests.
+# fast route for large m, validated against NumPy by the port's tests —
+# and the torch backend in float32 through one ``addmm``.
 
 
 # Device-capable backends additionally expose the lockstep-path API:
@@ -151,7 +156,9 @@ class ClusterResult:
 # ``(W, sq)`` pair, and ``device_rows(handle, idx)`` returning a *device*
 # (len(idx), m) float32 row block — one batched kernel launch for all
 # requested seeds, no host round-trip.  ``seed_rows`` stays the host
-# float64 surface.
+# float64 surface.  Float32 backends (``float32_rows``) also give
+# ``row_error_coef(n)``, the bound their rows' decisions are certified
+# against (see _Certifier).
 
 
 class _NumpyDistanceBackend:
@@ -217,8 +224,104 @@ class _KernelDistanceBackend:
         out = self.device_rows(handle, idx).cpu().numpy().astype(np.float64)
         return np.maximum(out, 0.0)
 
+    @staticmethod
+    def row_error_coef(n: int) -> float:
+        """The bound of the kernel's fixed-order ``fmaf`` chains
+        (:func:`repro_torch.kernels.distance.row_error_coef`)."""
+        return row_error_coef(n)
 
-DISTANCE_BACKENDS = ("numpy", "kernel")
+
+# Float32 matmul settings are process-wide: the torch lane's switch and
+# restore are one critical section, so two lanes in two threads cannot
+# restore each other's setting in the middle of a product.
+_PRECISION_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 products in full float32 (no TF32 on the card, no bf16 on
+    the CPU) inside the block, whatever the caller set; the caller's
+    settings are restored on the way out.
+
+    The switch goes through the global setting, which keeps PyTorch's
+    older and newer (per-backend, 2.9 on) settings in agreement: a float32
+    cuBLAS product raises where they disagree.  The per-backend values are
+    put back after the global one."""
+    b = torch.backends
+    knobs = ([(b.cuda.matmul, "fp32_precision"),
+              (b.mkldnn.matmul, "fp32_precision")]
+             if hasattr(b.cuda.matmul, "fp32_precision") else [])
+    with _PRECISION_LOCK:
+        precision = torch.get_float32_matmul_precision()
+        saved = [getattr(obj, attr) for obj, attr in knobs]
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(precision)
+            for (obj, attr), value in zip(knobs, saved):
+                setattr(obj, attr, value)
+
+
+def torch_seed_rows(W: torch.Tensor, sq: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """(k, m) float32 rows ``max(sq[i] + sq - 2·W[i]·Wᵀ, 0)`` as one
+    PyTorch expression: the Gram term and its epilogue in one ``addmm``
+    (one cuBLAS ``sgemm`` on the card), in full float32."""
+    i = idx.long()
+    with full_float32():
+        return (sq[i, None] + sq[None, :]).addmm(
+            W[i], W.T, alpha=-2).clamp_min(0)
+
+
+class _TorchDistanceBackend(_KernelDistanceBackend):
+    """Seed rows from one PyTorch ``addmm`` on ``device``
+    (:func:`torch_seed_rows`) — the twin of the reference's jax lane, a
+    plain ``jnp`` product there too — on the kernel lane's surface
+    otherwise.  Any seed count goes to the product as it is (the
+    reference padded it to a power of two only to bound jit retraces).
+
+    The library picks the summation order of each dot product (cuBLAS may
+    split it across blocks, may fold the addend into its accumulation, and
+    may pick another kernel for another seed count), so a seed's row need
+    not be the same bits when fetched with other seeds: only the certified
+    decisions are, and with them the verdicts.  :meth:`row_error_coef`
+    therefore bounds the rows for *any* order of the additions.  With
+    S = |W_s|² + |W_q|² and u = 2⁻²⁴:
+
+    * the addend ``sq[s] + sq[q]`` rounds once: within u·S of its value,
+      so at most (1 + u)·S;
+    * the row is then a sum of n + 1 terms, the addend and the n products
+      -2·W_s,j·W_q,j (the scaling by -2 is exact; a product rounds at most
+      once), added in whatever order and grouping the library picks: off
+      by at most γ_{n+1}·Σ|term| ≤ γ_{n+1}·(2 + u)·S, γ_k = k·u/(1 - k·u)
+      (the classical bound for a sum in any order, each term's products
+      and additions counted);
+    * the inputs: float32 copies of the float64 matrix and norms,
+      INPUT_ERR·u·S (:mod:`repro_torch.kernels.distance`);
+    * the clamp at zero only moves a row toward the exact one (≥ 0).
+
+    Together (2 + u)·γ_{n+1} + (1 + INPUT_ERR)·u, about (2n + 7)·u: at
+    n = 128, 263·u against the kernel lane's (4·√128 + 4)·u ≈ 49·u, whose
+    fixed-order chains its own tests calibrate.  The wider band flags more
+    candidacies for the exact lane; ``decisions`` counts them.
+    """
+
+    name = "torch"
+
+    def device_rows(self, handle, idx: Sequence[int]) -> torch.Tensor:
+        Wd, sqd = handle
+        ii = torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                             device=self.device)
+        return torch_seed_rows(Wd, sqd, ii)
+
+    @staticmethod
+    def row_error_coef(n: int) -> float:
+        ku = (max(n, 1) + 1) * U32
+        return (2.0 + U32) * ku / (1.0 - ku) + (1.0 + INPUT_ERR) * U32
+
+
+DISTANCE_BACKENDS = ("numpy", "kernel", "torch")
 
 DistanceBackendSpec = Union[str, object]
 
@@ -228,13 +331,15 @@ def get_distance_backend(backend: DistanceBackendSpec = "numpy",
     """Resolve a backend name (or pass through a backend instance).
 
     ``"numpy"`` is the exact host lane (``device`` unused); ``"kernel"``
-    runs on :func:`resolve_device` ``(device)``."""
+    and ``"torch"`` run on :func:`resolve_device` ``(device)``."""
     if not isinstance(backend, str):
         return backend
     if backend == "numpy":
         return _NumpyDistanceBackend()
     if backend == "kernel":
         return _KernelDistanceBackend(resolve_device(device))
+    if backend == "torch":
+        return _TorchDistanceBackend(resolve_device(device))
     raise ValueError(f"unknown distance backend {backend!r}; "
                      f"known: {DISTANCE_BACKENDS}")
 
@@ -243,15 +348,16 @@ def _is_device_backend(backend: DistanceBackendSpec) -> bool:
     """True when the spec names (or is) a device-capable backend — used
     to select the device variants of the clustering passes."""
     if isinstance(backend, str):
-        return backend == "kernel"
+        return backend in ("kernel", "torch")
     return bool(getattr(backend, "supports_device", False))
 
 
-# -- certified decisions of the kernel lane ----------------------------------
+# -- certified decisions of the float32 lanes --------------------------------
 #
 # A float32 base row differs from the exact lane's float64 one by at most
-# row_error_coef(n)·(|W_p|² + |W_q|²) (kernels/distance.py states the
-# derivation).  On the host the kernel lane adds the same float64 stack
+# row_error_coef(n)·(|W_p|² + |W_q|²), the lane's own coefficient
+# (kernels/distance.py and _TorchDistanceBackend state the derivations).
+# On the host a float32 lane adds the same float64 stack
 # and trial deltas as the exact lane, each addition rounding by at most
 # 2^-53 of a partial sum below |R| + the deltas' magnitudes: F64_ERR per
 # stack level covers both lanes.  The bound is itself computed in floating
@@ -272,12 +378,13 @@ class _Certifier:
     """Certifies a float32 lane's candidacy decisions against the exact
     lane and supplies the exact lane's rows for those it cannot settle:
     ``_NumpyDistanceBackend.seed_rows`` on the float64 base matrix, the
-    exact lane's own arithmetic (a few recent rows are kept)."""
+    exact lane's own arithmetic (a few recent rows are kept).  The bound
+    is the lane's: ``backend.row_error_coef(n)``."""
 
-    def __init__(self, W0: np.ndarray, sq0: np.ndarray,
+    def __init__(self, backend, W0: np.ndarray, sq0: np.ndarray,
                  sinks: Sequence[Dict]):
         self.W0, self.sq0 = W0, sq0
-        self.coef = row_error_coef(W0.shape[1])
+        self.coef = backend.row_error_coef(W0.shape[1])
         self._exact = _NumpyDistanceBackend()
         self._rows: "OrderedDict[int, np.ndarray]" = OrderedDict()
         self._sinks = sinks
@@ -417,7 +524,7 @@ def optics_cluster(
 
     settle = None
     if getattr(be, "float32_rows", False):
-        cert = _Certifier(v, sq, [be.decisions])
+        cert = _Certifier(be, v, sq, [be.decisions])
 
         def settle(p, row, thr2, unassigned):
             return cert.settle(row, thr2, unassigned[unassigned != p],
@@ -499,9 +606,9 @@ class IncrementalClusterState:
         # against the exact lane, and the unsettled ones re-decided there.
         self._cert: Optional[_Certifier] = None
         if getattr(self._backend, "float32_rows", False):
-            self._cert = _Certifier(self._W0, self._sq0,
-                                    [self.fetch_stats,
-                                     self._backend.decisions])
+            self._cert = _Certifier(
+                self._backend, self._W0, self._sq0,
+                [self.fetch_stats, self._backend.decisions])
         self._device = None   # DeviceLockstep | False (probed) | None
         # stack of (cols, old values, installed values, saved sq) — sq is
         # replaced, not updated in place, so popping restores it

@@ -138,8 +138,8 @@ def lane_kw(analyzer_kw: Optional[Dict[str, Any]] = None,
 def check_lane(kw: Dict[str, Any]) -> None:
     """Raise at construction, not at the first window, when the lane
     ``kw`` names needs a card that is absent: every lane but the exact
-    ``"numpy"`` one runs the seed-row kernel on ``kw["device"]`` (None:
-    the card), with no fallback to the CPU."""
+    ``"numpy"`` one (the seed-row kernel, the torch lane's product) runs
+    on ``kw["device"]`` (None: the card), with no fallback to the CPU."""
     if kw.get("distance_backend", "kernel") != "numpy":
         resolve_device(kw.get("device"))
 

@@ -582,13 +582,17 @@ class Trainer:
                 self.monitor.observe_step(self.step, dt)
                 rec = {"step": self.step, "loss": loss, "seconds": dt,
                        "grad_norm": float(metrics["grad_norm"])}
+                if "expert_counts" in metrics:
+                    rec["expert_counts"] = (
+                        metrics["expert_counts"].cpu().numpy())
             self.history.append(rec)
             self.step += 1
             if self.tcfg.trace and self.tcfg.mitigate is not None:
                 # Closed loop (train/mitigate.py): the policy windows the
-                # step traces, analyzes, and may act — in place (ckpt
-                # reschedule) or by raising MitigationRestart (remesh),
-                # which run_with_restarts handles like any failure.
+                # step traces, analyzes, and may act — in place (expert
+                # rebalance, ckpt reschedule) or by raising
+                # MitigationRestart (remesh), which run_with_restarts
+                # handles like any failure.
                 self.tcfg.mitigate.observe(self)
             if self.tcfg.ckpt_every and self.step % self.tcfg.ckpt_every == 0:
                 self.save()

@@ -391,6 +391,35 @@ def test_traced_moe_trainer_runs_its_probes():
     assert step[2]["expert_counts"].shape == (cfg.n_layers, 4)
 
 
+def test_untraced_history_keeps_expert_counts():
+    """An untraced step's history record carries the step's (L, E) expert
+    counts as a host array, as the reference's ``Trainer.run`` copies
+    them in: each layer routes every token to top_k experts (counted
+    before the capacity drop)."""
+    cfg = get_arch("mixtral-8x22b").smoke
+    B, S = 2, 16
+    t = Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab),
+                TrainerConfig(steps=3), device="cpu")
+    seen, step = [], t.train_step
+
+    def spy(params, opt_state, batch):
+        out = step(params, opt_state, batch)
+        seen.append(out[2]["expert_counts"].clone())
+        return out
+
+    t.train_step = spy
+    hist = t.run()
+    assert len(hist) == len(seen) == 3
+    for rec, want in zip(hist, seen):
+        got = rec["expert_counts"]
+        assert isinstance(got, np.ndarray)
+        assert got.shape == (cfg.n_layers, cfg.moe.n_experts)
+        np.testing.assert_array_equal(got.sum(axis=1),
+                                      B * S * cfg.moe.top_k)
+        np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_mixtral_checkpoint_restores_across_packages(tmp_path):
     cfg, rcfg = get_arch("mixtral-8x22b").smoke, \
         ref_arch("mixtral-8x22b").smoke
