@@ -219,10 +219,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernel and torch lanes with equal ``derived`` columns; ``--only
    kernels`` with every row finite and positive (a kernel row fails
    unless its kernel launched); ``repro_torch.examples.quickstart`` and
-   ``moe_imbalance`` returning from ``main``.  The whole script's time
-   is logged.
+   ``moe_imbalance`` returning from ``main``;
+32. multi-device and ``launch/``: the dry-run of mixtral-8x22b train_4k on
+   the (2, 16, 16) mesh and of gemma-7b decode_32k on (16, 16), each a
+   child process on the host's CPU (a fake world of 512 or 256 ranks,
+   ``meta`` tensors), started first; meanwhile st-100m FULL float32 at
+   8 x 1024 takes 3 AdamW steps through ``repro_torch.launch.train --mesh
+   1x1`` (its parameters DTensors placed by ``PARAM_RULES``, each step
+   under ``activation_sharding``, NCCL at world size 1, in a child) with
+   each loss within 1e-5 relative of the unsharded trainer's and as many
+   RMSNorm and attention launches a step; the compressed all-reduce on
+   st-100m's gradient tree over NCCL in a one-rank child, equal to
+   ``dequantize(quantize(g))`` bit for bit, ``collectives_of`` counting
+   its int32 payload; ``examples.dryrun_triage`` in a child; each cell's
+   per-rank bytes against the card's 80 GB and its three roofline
+   terms logged.  The whole script's time is logged.
 
-Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21, 22-24, 26-28 and 29
+Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21, 22-24, 26-28, 29 and 32
 count the kernels' launches from 0 and fail if the main path never
 launched them (phase 11's tail counts its own in the child; phase 29's
 torch lane must launch none, and phase 31's kernel bench checks each of
@@ -3571,6 +3584,229 @@ def lane_phases() -> dict:
             "bench": bench}
 
 
+# -- phase 32 --------------------------------------------------------------
+
+# The sharded step: st-100m FULL, float32, 8 x 1024, 3 AdamW steps on a
+# (1, 1) mesh ("data", "model") over NCCL at world size 1.
+SHARDED_ARGV = ("--arch", "st-100m", "--steps", "3", "--batch", "8",
+                "--seq", "1024")
+SHARDED_TOL = 1e-5
+# The dry-run cells (arch, shape, multi-pod), each a child process on the
+# host's CPU, started first and run while the card works.
+DRYRUN_CELLS = (("mixtral-8x22b", "train_4k", True),
+                ("gemma-7b", "decode_32k", False))
+
+
+def compression_child(rank: int, smoke: bool = False) -> dict:
+    """In a process group of one rank: st-100m's gradient tree (one step
+    at 8 x 1024, float32; the smoke config at 2 x 32 with ``smoke``)
+    through ``compressed_psum_fn`` and ``pod_compressed_allreduce`` on a
+    (1,) "pod" mesh.  Each leaf must equal ``dequantize(quantize(g))`` bit
+    for bit (one rank: the mean of one), and ``collectives_of`` must count
+    the int32 codes and the shared amax of every leaf."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hlo import collectives_of
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.models import family_module
+    from repro_torch.optim import (compressed_psum_fn, dequantize_int8,
+                                   pod_compressed_allreduce, quantize_int8)
+    from repro_torch.train.loop import _skeleton, value_and_grad
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    entry = get_arch("st-100m")
+    cfg = entry.smoke if smoke else entry.full
+    batch, seq = (2, 32) if smoke else (8, 1024)
+    model = family_module(cfg).init(cfg, 0, device)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    del model
+    _, _, grads = value_and_grad(_skeleton(cfg), params, device_batch(
+        DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab), 0,
+        device))
+    mean = compressed_psum_fn(grads)     # the group's first collectives
+    t0 = time.perf_counter()
+    compressed_psum_fn(grads)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mesh = init_device_mesh(device, (1,), mesh_dim_names=("pod",))
+    pod = pod_compressed_allreduce(mesh, {k: g[None]
+                                          for k, g in grads.items()})
+    bad = [k for k, g in grads.items()
+           if not (torch.equal(mean[k], dequantize_int8(*quantize_int8(g)))
+                   and torch.equal(pod[k], mean[k]))]
+    if bad:
+        raise AssertionError(f"compressed mean != dequantize(quantize(g)) "
+                             f"for {bad[:5]}")
+    stats = collectives_of(compressed_psum_fn, grads)
+    want = sum(4 * g.numel() + 4 for g in grads.values())
+    if stats.bytes_by_op != {"all-reduce": want} or \
+            stats.count_by_op != {"all-reduce": 2 * len(grads)}:
+        raise AssertionError(f"collectives_of counted {stats.summary()}; "
+                             f"want all-reduce {want:,} bytes in "
+                             f"{2 * len(grads)} calls")
+    return {"leaves": len(grads), "elements": sum(g.numel()
+                                                  for g in grads.values()),
+            "allreduce_bytes": want, "summary": stats.summary(),
+            "psum_s": secs}
+
+
+def unsharded_steps(argv, device) -> dict:
+    """The unsharded trainer on ``argv``'s config, step by step: each
+    step's loss and kernel launches."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+    trainer = train.build_trainer(train.parser().parse_args(
+        [*argv, "--device", str(device)]))
+    losses, launches = [], []
+    for _ in range(trainer.tcfg.steps):
+        before = dict(K.LAUNCHES)
+        losses.append(trainer.run(1)[-1]["loss"])
+        launches.append({k: v - before[k] for k, v in K.LAUNCHES.items()})
+    return {"losses": losses, "launches_per_step": launches}
+
+
+def last_json(stdout: str) -> dict:
+    return json.loads([l for l in stdout.splitlines()
+                       if l.startswith("{")][-1])
+
+
+def multi_device_phase(device, argv=SHARDED_ARGV, cells=DRYRUN_CELLS,
+                       smoke: bool = False) -> dict:
+    """Phase 32, its parts side by side: the dry-run cells and
+    ``examples.dryrun_triage`` start as child processes on the CPU (fake
+    256-, 512- or 8-rank worlds, ``meta`` tensors); the compressed
+    all-reduce runs in a one-rank child (``compression_child``, waited
+    for on a thread); and on the card ``repro_torch.launch.train --mesh
+    1x1`` (a child: its NCCL group of one touches nothing else) runs
+    against the unsharded trainer in this process — each step's loss
+    within ``SHARDED_TOL`` relative, and RMSNorm and attention launched
+    as many times each step, through the CUDA kernels on each rank's
+    shards.  Each cell must be ok, with its per-rank bytes and the three
+    roofline terms logged."""
+    from repro_torch.launch.mesh import run_ranks
+    on_card = _on_card(device)
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    out = {"cells": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for arch, shape, multi in cells:
+            path = str(pathlib.Path(tmp) / f"{arch}_{shape}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out", path]
+            procs.append((arch, shape, path, subprocess.Popen(
+                cmd + (["--multi-pod"] if multi else []), cwd=ROOT,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        triage = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.examples.dryrun_triage",
+             "--device", str(device)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        compression = {}
+
+        def compress() -> None:
+            t1 = time.perf_counter()
+            try:
+                compression["result"] = run_ranks(
+                    compression_child, 1, "nccl" if on_card else "gloo",
+                    args=(smoke,))[0]
+            except BaseException as e:  # re-raised on the main thread
+                compression["error"] = e
+            compression["s"] = time.perf_counter() - t1
+
+        worker = threading.Thread(target=compress)
+        worker.start()
+        try:
+            t1 = time.perf_counter()
+            flags = (["--smoke"] if smoke else []) + ["--device",
+                                                     str(device)]
+            sharded = last_json(child(["repro_torch.launch.train", *argv,
+                                       *flags, "--mesh", "1x1"]).stdout)
+            plain = unsharded_steps([*argv] + (["--smoke"] if smoke
+                                               else []), device)
+            for i, (a, b) in enumerate(zip(sharded["losses"],
+                                           plain["losses"])):
+                if not abs(a - b) <= SHARDED_TOL * abs(b):
+                    raise AssertionError(f"sharded step {i} loss {a} != "
+                                         f"unsharded {b}")
+            for i, (a, b) in enumerate(zip(sharded["launches_per_step"],
+                                           plain["launches_per_step"])):
+                for name in ("rmsnorm", "flash_attention"):
+                    if a[name] != b[name] or (on_card and not a[name]):
+                        raise AssertionError(
+                            f"sharded step {i} launched {name} {a[name]} "
+                            f"times, the unsharded step {b[name]}")
+            out["sharded"], out["plain"] = sharded, plain
+            out["sharded_s"] = time.perf_counter() - t1
+        finally:
+            worker.join()
+            t_out, t_err = triage.communicate(timeout=600)
+            for arch, shape, path, p in procs:
+                try:
+                    stdout, stderr = p.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    stdout, stderr = p.communicate()
+                if p.returncode != 0:
+                    raise AssertionError(f"dry-run {arch} {shape} exited "
+                                         f"{p.returncode}:\n{stdout[-2000:]}"
+                                         f"\n{stderr[-3000:]}")
+                with open(path) as f:
+                    (r,) = json.load(f)
+                if not r.get("ok"):
+                    raise AssertionError(f"dry-run {arch} {shape}: {r}")
+                out["cells"][f"{arch}/{shape}"] = r
+    if "error" in compression:
+        raise compression["error"]
+    out["compression"] = compression["result"]
+    out["compression_s"] = compression["s"]
+    if triage.returncode != 0 or "CCR:" not in t_out:
+        raise AssertionError(f"dryrun_triage exited {triage.returncode}, "
+                             f"found no CCR:\n{t_out[-2000:]}\n"
+                             f"{t_err[-3000:]}")
+    out["triage"] = [l for l in t_out.splitlines()
+                     if l.startswith(("CCR", "root-cause"))]
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_multi_device(res: dict, card_bytes: float = 80e9) -> None:
+    sh, pl = res["sharded"], res["plain"]
+    log(f"[32] launch.train --mesh 1x1 (NCCL, world 1), st-100m FULL f32 "
+        f"8 x 1024, 3 steps: losses {sh['losses']} against the "
+        f"unsharded {pl['losses']} (tolerance {SHARDED_TOL} relative); "
+        f"launches per step {sh['launches_per_step']} (unsharded "
+        f"{pl['launches_per_step']}); median step "
+        f"{sh['median_step_s'] * 1e3:.1f} ms; peak memory "
+        f"{sh['peak_memory_bytes']} bytes; {res['sharded_s']:.1f} s")
+    c = res["compression"]
+    log(f"[32] compressed_psum_fn / pod_compressed_allreduce over NCCL on "
+        f"st-100m's {c['leaves']} gradient leaves ({c['elements']:,} "
+        f"elements): equal to dequantize(quantize(g)) bit for bit; "
+        f"collectives_of: {c['summary']} (int32 codes, 4 bytes an "
+        f"element); psum {c['psum_s'] * 1e3:.1f} ms (a second call); "
+        f"{res['compression_s']:.1f} s")
+    for name, r in res["cells"].items():
+        mem, t = r["memory"], r["roofline"]
+        mem_s = ", ".join(f"{k} {v:.4g} ({v / card_bytes:.3f} of 80 GB)"
+                          for k, v in mem.items())
+        log(f"[32] dryrun {name} on {r['mesh']} ({r['chips']} fake ranks, "
+            f"meta): per rank {mem_s}; FLOPs {r['cost']['flops']:.4g}, "
+            f"bytes {r['cost']['bytes']:.4g}, collectives "
+            f"{r['cost']['collective_bytes']:.4g}; H100 terms compute "
+            f"{t['compute_s']:.4g} s, memory {t['memory_s']:.4g} s, "
+            f"collective {t['collective_s']:.4g} s (NVLink 450 GB/s, a "
+            f"lower bound across nodes): {t['dominant']}; "
+            f"{r['wall_s']:.1f} s")
+    log(f"[32] examples.dryrun_triage: {res['triage']}")
+    log(f"[32] phase {res['phase_s']:.1f} s")
+
+
 def log_family_parity(phase: str, cfg, res: dict, wall: float) -> None:
     f, d, t = res["forward"], res["decode"], res["train"]
     enc = (f"; encoder output max|card-host| {f['encoder_err']:.6g} of "
@@ -4062,6 +4298,10 @@ def main() -> int:
     # 29-31. the torch lane, the command-line, benchmark and example twins
     lanes = lane_phases()
 
+    # 32. multi-device and launch/
+    multi = multi_device_phase("cuda")
+    log_multi_device(multi)
+
     main_t = timings[MAIN_PATH_SHAPE]
     kernels = [{
         "name": "multi_seed_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4189,6 +4429,9 @@ def main() -> int:
                   "step_shares": ssm["rtrained"]["shares"]},
     })
     rms["launches_train_rwkv6"] = ssm["rtrained"]["launches"]["rmsnorm"]
+    for kd in (rms, attn):
+        kd["launches_sharded_train"] = sum(
+            step[kd["name"]] for step in multi["sharded"]["launches_per_step"])
     kernels[0]["library"] = "core/clustering.py::torch_seed_rows (addmm)"
     kernels[0]["torch_lane"] = {
         "rows": lanes["rows"], "corpus_decisions":
@@ -4196,7 +4439,7 @@ def main() -> int:
         "fleet": {lane: {"wall_s": r["wall_s"], "launches": r["launches"],
                          "decisions": r["decisions"]}
                   for lane, r in lanes["fleet"].items()}}
-    log(f"chip_smoke: phases 1-31 passed in "
+    log(f"chip_smoke: phases 1-32 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -19,8 +19,8 @@ from .clustering import (DISTANCE_BACKENDS, HIGH, LOW, MEDIUM,
                          kmeans_severity, optics_cluster, resolve_device)
 from .collector import (RegionBehavior, SyntheticWorkload, TimedRegionRunner,
                         static_metrics_from_costs, static_trace_from_costs)
-from .hlo import (H100_SXM, HardwareSpec, RooflineTerms, cost_of,
-                  roofline_terms)
+from .hlo import (H100_SXM, CollectiveStats, HardwareSpec, RooflineTerms,
+                  collectives_of, cost_of, costs_of, roofline_terms)
 from .metrics import (BYTES, COMM_BYTES, COMM_TIME, CPU_TIME,
                       DECISION_ATTRIBUTES, FLOPS, HBM_INTENSITY, HOST_BYTES,
                       RAW_METRICS, VMEM_PRESSURE, WALL_TIME, RegionMetrics)

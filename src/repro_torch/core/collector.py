@@ -30,6 +30,7 @@ three backends:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -118,6 +119,31 @@ def _pick_cpu_clock() -> Tuple[Callable[[], float], Optional[float], str]:
     return time.process_time, process_tick, "process"
 
 
+@contextlib.contextmanager
+def _calling_thread_only(device: torch.device):
+    """On the CPU, run PyTorch's operators on the calling thread alone
+    (``torch.set_num_threads(1)``) for the block, then restore the count.
+
+    A region's CPU time must be its own work.  With the intra-op pool on,
+    PyTorch hands even a (64, 64) product to worker threads that spin
+    while they wait: the process clock then charges the spin to whichever
+    region woke them, and on a loaded host the wait itself runs to
+    milliseconds (a 4-iteration expert probe of mixtral-smoke, 0.2 ms on
+    one thread, read 0.5 s of wall and 0.7 s of CPU at worst of 20 alone
+    on 8 threads, and its 48-iteration twin a median CPU time 10x its
+    minimum).  The reference's XLA runs computations this small on the
+    calling thread.  The card's regions are not affected."""
+    if device.type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 class TimedRegionRunner:
     """Run an instrumented step shard-by-shard, region-by-region.
 
@@ -135,7 +161,12 @@ class TimedRegionRunner:
     :func:`~repro_torch.core.hlo.cost_of` call on shard 0's inputs, made
     once before any timed call and never timed; they are the same for
     every shard, as the reference's compiled costs are.  ``COMM_BYTES`` is
-    0: a region on one card runs no collective.
+    the result bytes of the collectives the same call issues
+    (:func:`~repro_torch.core.hlo.collectives_of`): 0 for a region on one
+    card with no process group.
+
+    On the CPU every call (and the CPU clock's calibration) runs on the
+    calling thread alone (:func:`_calling_thread_only`).
 
     ``WALL_TIME`` is the host's ``perf_counter`` around the call, ending
     in ``torch.cuda.synchronize()`` on the card — device time alone would
@@ -175,6 +206,11 @@ class TimedRegionRunner:
         and the CPU-tick snap happen in :meth:`RegionTrace.reduce`, driven
         by the ``cpu_tick`` stored in the header — so an offline analysis
         of the saved artifact reproduces this host's decisions exactly."""
+        with _calling_thread_only(self.device):
+            return self._run_trace(shard_states, shard_data)
+
+    def _run_trace(self, shard_states: Sequence[Any],
+                   shard_data: Sequence[Any]) -> RegionTrace:
         regions = self._leaf_regions()
         m = len(shard_states)
         states = list(shard_states)
@@ -206,8 +242,9 @@ class TimedRegionRunner:
         for r in regions:
             rid = r.region_id
             if rid not in self.costs:
-                flops, byts = hlo_mod.cost_of(r.fn, states[0], shard_data[0])
-                self.costs[rid] = (flops, byts, 0.0)
+                flops, byts, coll = hlo_mod.costs_of(r.fn, states[0],
+                                                     shard_data[0])
+                self.costs[rid] = (flops, byts, float(coll.total_bytes))
             flops, byts, comm = self.costs[rid]
             dev = np.zeros((m, self.repeats))
             for i in range(m):

@@ -74,20 +74,32 @@ def to_device(batch: Dict[str, np.ndarray],
 
 
 def device_batch(cfg: DataConfig, step: int,
-                 device: Union[None, str, torch.device] = None
-                 ) -> Dict[str, torch.Tensor]:
+                 device: Union[None, str, torch.device] = None,
+                 mesh=None, sharding=None) -> Dict[str, torch.Tensor]:
     """The global batch at ``step`` as tensors on ``device`` (None: the
-    card, which raises without one)."""
-    return to_device(host_batch(cfg, step), resolve_device(device))
+    card, which raises without one).  With ``sharding`` (``(mesh,
+    placements)``, as ``sharding.sharding_for`` gives) or a ``mesh`` (the
+    activation rules' ``batch`` on dim 0) each tensor is a DTensor, of
+    which every rank keeps its own shard: each rank makes the whole batch
+    from the stream, which is addressed by step, so no rank sends another
+    anything."""
+    b = to_device(host_batch(cfg, step), resolve_device(device))
+    if sharding is None and mesh is None:
+        return b
+    from repro_torch.sharding import ACT_RULES, distribute, sharding_for
+    return {k: distribute(v, sharding or sharding_for(
+        v.shape, ("batch",) + (None,) * (v.dim() - 1), ACT_RULES, mesh))
+        for k, v in b.items()}
 
 
 def batch_iterator(cfg: DataConfig, start_step: int = 0,
-                   device: Union[None, str, torch.device] = None
-                   ) -> Iterator[Dict[str, torch.Tensor]]:
+                   device: Union[None, str, torch.device] = None,
+                   sharding=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """:func:`device_batch` of each step from ``start_step`` on."""
     device = resolve_device(device)
     step = start_step
     while True:
-        yield device_batch(cfg, step, device)
+        yield device_batch(cfg, step, device, sharding=sharding)
         step += 1
 
 

@@ -72,6 +72,7 @@ def counted(work: Callable[..., Tuple[float, float]]):
     return wrap
 
 
+from . import local  # noqa: E402
 from .distance import (SEED_COUNTS, multi_seed_rows,  # noqa: E402
                        multi_seed_rows_ref)
 from .flash_attention import (FlashAttentionFunction,  # noqa: E402

@@ -219,11 +219,20 @@ def multi_seed_rows(points: torch.Tensor, sq: torch.Tensor,
     On CUDA the rows come from one launch of ``csrc/distance.cu`` on the
     current stream, on the path :func:`seed_rows_plan` picks (a seed index
     outside [0, m) yields a row of NaN: the kernel cannot raise); on the
-    CPU from :func:`multi_seed_rows_ref`.
+    CPU from :func:`multi_seed_rows_ref`; on ``meta`` an output of the
+    right shape.  DTensor points are used whole on every rank
+    (:func:`repro_torch.kernels.local.replicated`): the seed indices are
+    global rows.
     """
+    from .local import is_dtensor, replicated
+    if is_dtensor(points):  # seed indices are global: the whole points
+        return replicated(multi_seed_rows.__wrapped__, points, sq, idx)
     _check(points, sq, idx)
     if points.device.type == "cpu":
         return multi_seed_rows_ref(points, sq, idx)
+    if points.device.type == "meta":    # shapes only, for a count
+        return torch.empty((idx.shape[0], points.shape[0]),
+                           dtype=points.dtype, device="meta")
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
     m, n = points.shape

@@ -205,11 +205,33 @@ def attention_work(B: int, Q: int, H: int, KV: int, dh: int, K: int,
 
 def _work(q, k, v, q_pos, k_pos, *, causal=True, window=None, softcap=None
           ) -> Tuple[float, float]:
+    """The work of one call.  Positions on ``meta`` have no values: the
+    count then takes the queries as the last Q of K consecutive positions
+    (a training or prefill call, or a decode call over a full cache)."""
     B, Q, H, dh = q.shape
-    live = live_mask(q_pos, k_pos, causal, window)
-    return attention_work(B, Q, H, k.shape[2], dh, k.shape[1],
-                          q.element_size(), int(live.sum()),
-                          needed_keys(live))
+    K = k.shape[1]
+    if q_pos.device.type == "meta" or k_pos.device.type == "meta":
+        pairs, keys = consecutive_live(Q, K, causal, window)
+    else:
+        live = live_mask(q_pos, k_pos, causal, window)
+        pairs, keys = int(live.sum()), needed_keys(live)
+    return attention_work(B, Q, H, k.shape[2], dh, K, q.element_size(),
+                          pairs, keys)
+
+
+def consecutive_live(Q: int, K: int, causal: bool, window: Optional[int]
+                     ) -> Tuple[int, int]:
+    """(live pairs, needed keys) of :func:`live_mask` for keys at 0..K-1
+    and queries at the last Q of them (K-Q..K-1), without the (Q, K)
+    mask: each query's live keys are one interval."""
+    p = torch.arange(K - Q, K, dtype=torch.int64)
+    lo = (p - window + 1).clamp(min=0) if window is not None \
+        else torch.zeros_like(p)
+    hi = p if causal else torch.full_like(p, K - 1)
+    n = (hi - lo + 1).clamp(min=0)
+    if not bool((n > 0).all()):
+        return int(n.sum()), K
+    return int(n.sum()), int(hi.max() - lo.min() + 1)
 
 
 @counted(_work)
@@ -228,12 +250,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On CUDA one call of ``csrc/flash_attention.cu`` on the current stream,
     on the path :func:`attention_plan` picks (the split path launches its
     split kernel and its merge kernel, and allocates the partials'
-    workspace); on the CPU :func:`flash_attention_ref`.
+    workspace); on the CPU :func:`flash_attention_ref`; on ``meta`` an
+    output of the right shape (its work still counted).
     """
     _check(q, k, v, q_pos, k_pos, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                    window=window, softcap=softcap)
+    if q.device.type == "meta":     # shapes only, for a count (dry-run)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     B, Q, H, dh = q.shape

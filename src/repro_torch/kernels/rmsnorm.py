@@ -140,11 +140,14 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     Returns (N, d) in x's dtype.
 
     On CUDA one launch of ``csrc/rmsnorm.cu`` on the current stream, on
-    the path :func:`rmsnorm_plan` picks; on the CPU :func:`rmsnorm_ref`.
+    the path :func:`rmsnorm_plan` picks; on the CPU :func:`rmsnorm_ref`;
+    on ``meta`` an output of the right shape (its work still counted).
     """
     _check(x, w)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
+    if x.device.type == "meta":     # shapes only, for a count (dry-run)
+        return torch.empty_like(x)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     n, d = x.shape

@@ -197,7 +197,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     values are rounded to r's dtype, as the reference's chunked form does.
 
     On CUDA one launch of ``csrc/wkv6.cu`` on the current stream, of the
-    kernel :func:`wkv6_plan` picks; on the CPU :func:`wkv6_ref`.
+    kernel :func:`wkv6_plan` picks; on the CPU :func:`wkv6_ref`; on
+    ``meta`` an output of the right shape (its work still counted).
     """
     _check(r, k, v, w, u, S)
     B, T, H, dh = r.shape
@@ -206,6 +207,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, S_new = wkv6_ref(r, k, v, w, u, S)
         S.copy_(S_new)
         return out.to(r.dtype).float() if round_out else out
+    if r.device.type == "meta":     # shapes only, for a count (dry-run)
+        return torch.empty(r.shape, dtype=torch.float32, device="meta")
     if r.device.type != "cuda":
         raise ValueError(f"no kernel for device {r.device}")
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)

@@ -15,6 +15,24 @@ Smoke-scale on the host (the kernels' plain versions)::
     PYTHONPATH=src python -m repro_torch.launch.train --arch st-100m \\
         --smoke --steps 20 --batch 4 --seq 64 --device cpu
 
+With ``--mesh DxM`` (data x model, or ``PxDxM`` with a pod axis) the
+parameters and the optimizer state are DTensors placed by the
+reference's ``PARAM_RULES`` and each step runs under its activation
+rules (``train.loop.make_sharded_train_step``), over the process group
+``torchrun`` starts (``nccl`` on the card, ``gloo`` with ``--device
+cpu``), or a world of one::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch st-100m --steps 20 --batch 8 --seq 1024 --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch st-100m \
+        --steps 3 --batch 8 --seq 1024 --mesh 1x1
+
+A sharded run resumes from and saves to ``--ckpt-dir`` as an unsharded
+one does (the checkpoints hold whole tensors, the same bytes) and traces
+nothing; it prints a step's loss and kernel launches every
+``--log-every`` steps, and its final JSON line adds the mesh, the losses
+and the launches per step.
+
 Without a card the default fails.  Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed``.  Before the reference's final
 JSON line it prints the median step time, the tokens per second at that
@@ -52,10 +70,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device of the model (default: cuda)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM or PxDxM: train sharded on this mesh")
     return ap
 
 
-def build_trainer(args: argparse.Namespace) -> Trainer:
+def build_trainer(args: argparse.Namespace, mesh=None) -> Trainer:
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
     return Trainer(
@@ -66,7 +86,7 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
                    vocab=cfg.vocab),
         TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every, seed=args.seed),
-        device=args.device)
+        device=args.device, mesh=mesh)
 
 
 def throughput(trainer: Trainer, args: argparse.Namespace) -> dict:
@@ -83,8 +103,89 @@ def throughput(trainer: Trainer, args: argparse.Namespace) -> dict:
                 trainer.device) if on_card else None)}
 
 
+def sharded_main(args: argparse.Namespace) -> int:
+    """``--mesh``: every rank builds the same seeded state (or resumes the
+    newest checkpoint in ``--ckpt-dir``, read whole), keeps its shards,
+    and runs ``args.steps`` sharded steps; checkpoints are saved whole
+    every ``--ckpt-every`` steps and at the end, as ``Trainer.run`` saves
+    them."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.data import device_batch
+    from repro_torch.launch.mesh import make_mesh, mesh_axes_for, \
+        start_world
+    from repro_torch.models.convert import params_to_tree
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import (make_sharded_train_step,
+                                        shard_train_state)
+    shape = tuple(int(n) for n in args.mesh.split("x"))
+    on_card = args.device is None or str(args.device).startswith("cuda")
+    local_rank = start_world("nccl" if on_card else "gloo")
+    if on_card:
+        args.device = f"cuda:{local_rank}"
+    try:
+        mesh = make_mesh(shape, mesh_axes_for(shape),
+                         "cuda" if on_card else "cpu")
+        trainer = build_trainer(args, mesh)
+        cfg = trainer.cfg
+        rank0 = dist.get_rank() == 0
+        if trainer.maybe_resume() and rank0:
+            print(f"resumed from step {trainer.step}")
+        params, opt = shard_train_state(cfg, trainer.params,
+                                        trainer.opt_state, mesh)
+        del trainer.params, trainer.opt_state
+        step_fn = make_sharded_train_step(cfg, trainer.opt_cfg, mesh)
+
+        def save(step: int) -> None:
+            if args.ckpt_dir:
+                checkpoint.save(args.ckpt_dir, step, {
+                    "params": params_to_tree(params, cfg),
+                    "opt_state": {"m": params_to_tree(opt["m"], cfg),
+                                  "v": params_to_tree(opt["v"], cfg),
+                                  "step": opt["step"]}},
+                    meta={"config": cfg.name})
+
+        start = trainer.step
+        end = start + args.steps
+        losses, launches, secs = [], [], []
+        for step in range(start, end):
+            before = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            batch = device_batch(trainer.data_cfg, step, trainer.device,
+                                 mesh=mesh)
+            params, opt, metrics = step_fn(params, opt, batch)
+            losses.append(float(metrics["loss"].full_tensor()))
+            secs.append(time.perf_counter() - t0)
+            trainer.monitor.observe_step(step, secs[-1])
+            launches.append({k: v - before[k]
+                             for k, v in K.LAUNCHES.items()})
+            if rank0 and (step % args.log_every == 0 or step == end - 1):
+                print(f"step {step:6d} loss {losses[-1]:.4f} "
+                      f"({secs[-1] * 1e3:.1f} ms) launches {launches[-1]}")
+            if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+                save(step + 1)
+        save(end)
+        if rank0:
+            print(json.dumps({
+                "final_loss": losses[-1], "steps": end,
+                "straggler_events": len(trainer.monitor.events),
+                "mesh": args.mesh, "losses": losses,
+                "launches_per_step": launches,
+                "median_step_s": float(np.median(secs[1:] or secs)),
+                "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                      if on_card else None)}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    if args.mesh:
+        return sharded_main(args)
     trainer = build_trainer(args)
     resumed = trainer.maybe_resume()
     if resumed:

@@ -147,3 +147,76 @@ def params_to_numpy(state: Dict[str, torch.Tensor], cfg: ModelConfig
             return {k: walk(v) for k, v in node.items()}
         return tensor_to_numpy(node)
     return walk(params_to_tree(state, cfg))
+
+
+# The reference's logical axes of each leaf, by (the module that holds it,
+# its name); a per-layer leaf drops the reference's leading "layers".
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed"),
+              "wkv_a": ("embed", "kv_lora"),
+              "wkv_b": ("kv_lora", "heads", "head_dim")}
+_MLP_AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+             "wo": ("mlp", "embed")}
+_AXES = {
+    "attn": _ATTN_AXES, "self_attn": _ATTN_AXES, "cross_attn": _ATTN_AXES,
+    "mlp": _MLP_AXES,
+    "moe": {"router": ("embed", "expert_r"),
+            "wi": ("expert", "embed", "mlp"),
+            "wg": ("expert", "embed", "mlp"),
+            "wo": ("expert", "mlp", "embed"),
+            **{f"shared_{k}": v for k, v in _MLP_AXES.items()}},
+    # a hybrid sublayer's mixer: an RG-LRU block or attention
+    "mix": {"conv": ("conv", "mlp"), "lam": ("mlp",),
+            "w_a": ("mlp", "mlp2"), "w_x": ("mlp", "mlp2"),
+            "w_in": ("embed", "mlp"), "w_out": ("mlp", "embed"),
+            **_ATTN_AXES},
+    "block": {"ck": ("embed", "mlp"), "cv": ("mlp", "embed"),
+              "w_lora_a": ("embed", "lora"), "w_lora_b": ("lora", "embed"),
+              **{k: ("embed", "heads_x_dim")
+                 for k in ("cr", "wg", "wk", "wr", "wv")},
+              "wo": ("heads_x_dim", "embed")},
+}
+_TOP_AXES = {"embed": ("vocab", "embed"), "head": ("embed", "vocab"),
+             "vis_proj": ("embed", "act_embed")}
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
+    """The logical axis names of each parameter, keyed as the port's state
+    dict: the reference's axes tree (``api.init``'s second result) under
+    this module's naming, each stacked leaf without its ``"layers"`` dim.
+    Norm scales and the rwkv block's vectors are ``("embed",)``."""
+    from . import family_module
+    model = family_module(cfg).init(cfg, None, "meta")
+    out: Dict[str, Tuple[str, ...]] = {}
+    for key in model.state_dict():
+        *heads, leaf = key.split(".")
+        if not heads and leaf in _TOP_AXES:
+            out[key] = _TOP_AXES[leaf]
+        elif heads and heads[-1] in _AXES and leaf in _AXES[heads[-1]]:
+            out[key] = _AXES[heads[-1]][leaf]
+        else:   # norms, rwkv's mixes, decays and bonus
+            out[key] = ("embed",)
+    return out
+
+
+def axes_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    """:func:`param_axes` in the reference's tree (the checkpoint's
+    layout, :func:`params_to_tree`): a stacked leaf's axes lead with
+    ``"layers"``, as the reference's axes tree has them."""
+    stacks = {port: ref for ref, port in _stacks(cfg).items()}
+    tree: Dict[str, Any] = {}
+    for key, axes in param_axes(cfg).items():
+        top, _, rest = key.partition(".")
+        i, _, leaf = rest.partition(".")
+        if top in stacks and i.isdigit():
+            path, axes = f"{stacks[top]}.{leaf}", ("layers",) + axes
+        else:
+            path = "embed.tokens" if key == "embed" else key
+        *heads, last = path.split(".")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = axes
+    return tree

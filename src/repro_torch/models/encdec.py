@@ -25,13 +25,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import constrain
 
 from .layers import (_project, attention, cross_entropy, embed,
                      init_attention_cache, logits_from, mlp, rms_norm,
                      rope_angles, rope_dim)
-from .transformer import (_param, _params, _zeros, attention_shapes,
-                          chunked_ce_from_hidden, decode_positions,
-                          functional_call, mlp_shapes, remat)
+from .transformer import (ACT_AXES, _param, _params, _zeros,
+                          attention_shapes, chunked_ce_from_hidden,
+                          decode_positions, functional_call, mlp_shapes,
+                          remat)
 
 Params = Dict[str, torch.Tensor]
 
@@ -59,11 +61,12 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, positions, angles) -> torch.Tensor:
         cfg = self.cfg
-        x = x + attention(self.attn, self.ecfg,
-                          rms_norm(x, self.ln1, cfg.norm_eps), positions,
-                          angles)
-        return x + mlp(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
-                       cfg.activation)
+        x = constrain(x + attention(self.attn, self.ecfg,
+                                    rms_norm(x, self.ln1, cfg.norm_eps),
+                                    positions, angles), ACT_AXES)
+        return constrain(x + mlp(self.mlp, rms_norm(x, self.ln2,
+                                                    cfg.norm_eps),
+                                 cfg.activation), ACT_AXES)
 
 
 class DecoderLayer(nn.Module):
@@ -97,14 +100,16 @@ class DecoderLayer(nn.Module):
         if isinstance(cross, torch.Tensor):
             k, v = self.cross_kv(cross)
             cross = (k, v, cross_positions(cross))
-        x = x + attention(self.self_attn, cfg,
-                          rms_norm(x, self.ln1, cfg.norm_eps), positions,
-                          angles, cache)
-        x = x + attention(self.cross_attn, cfg,
-                          rms_norm(x, self.ln2, cfg.norm_eps), positions,
-                          None, kv_override=cross)
-        return x + mlp(self.mlp, rms_norm(x, self.ln3, cfg.norm_eps),
-                       cfg.activation)
+        x = constrain(x + attention(self.self_attn, cfg,
+                                    rms_norm(x, self.ln1, cfg.norm_eps),
+                                    positions, angles, cache), ACT_AXES)
+        x = constrain(x + attention(self.cross_attn, cfg,
+                                    rms_norm(x, self.ln2, cfg.norm_eps),
+                                    positions, None, kv_override=cross),
+                      ACT_AXES)
+        return constrain(x + mlp(self.mlp, rms_norm(x, self.ln3,
+                                                    cfg.norm_eps),
+                                 cfg.activation), ACT_AXES)
 
 
 class EncDec(nn.Module):
@@ -146,7 +151,7 @@ class EncDec(nn.Module):
     def encode(self, embeds: torch.Tensor) -> torch.Tensor:
         """embeds (B, T_enc, d) from the frontend stub -> the encoder's
         output (B, T_enc, d), final-normed."""
-        x = embeds.to(self.cfg.activation_dtype())
+        x = constrain(embeds.to(self.cfg.activation_dtype()), ACT_AXES)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         angles = self._angles(positions)

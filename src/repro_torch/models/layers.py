@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import (FlashAttentionFunction, RmsnormFunction,
-                                 flash_attention, rmsnorm)
+                                 flash_attention, local, rmsnorm)
+from repro_torch.sharding import constrain
 
 # Position of a KV-cache slot that was never written: masked by the causal
 # test of every real query.
@@ -34,7 +35,10 @@ UNWRITTEN = 2 ** 30
 # norms
 # --------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """x (..., d): the rows of x through the RMSNorm kernel."""
+    """x (..., d): the rows of x through the RMSNorm kernel (a DTensor's
+    local rows: :func:`repro_torch.kernels.local.rmsnorm`)."""
+    if local.is_dtensor(x):
+        return local.rmsnorm(x, w, eps, rms_norm)
     d = x.shape[-1]
     rows = x.reshape(-1, d).contiguous()
     if _differentiable(x, w):
@@ -132,6 +136,8 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, heads, dh) -> (B, S, heads, dh), one matrix
     product (the reference's einsum "bsd,dhk->bshk")."""
     d, heads, dh = w.shape
+    if local.is_dtensor(w):     # reshaped shard by shard
+        return local.split_dim(x @ local.merge_dims(w, 1), x.dim() - 1, dh)
     return (x @ w.reshape(d, heads * dh)).view(*x.shape[:-1], heads, dh)
 
 
@@ -171,7 +177,11 @@ def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         cv[:, start:start + S] = v.to(cv.dtype)
         cache["pos"][start:start + S] = positions.to(torch.int32)
         cache["idx"] += S
-        k, v, k_pos = ck, cv, cache["pos"]
+        # the cache pinned to its (batch x kv-head) sharding, as the
+        # reference's
+        k = constrain(ck, ("batch", "seq", "act_kv", None))
+        v = constrain(cv, ("batch", "seq", "act_kv", None))
+        k_pos = cache["pos"]
     out = _attend(q, k, v, positions, k_pos, causal=cfg.causal,
                   window=cfg.window, softcap=cfg.attn_logit_softcap)
     return _out_project(out, p["wo"])
@@ -181,7 +191,11 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
             window: Optional[int], softcap: Optional[float]) -> torch.Tensor:
     """The attention kernel (its autograd Function where a gradient is
-    needed) on contiguous q, k, v and int32 positions."""
+    needed) on contiguous q, k, v and int32 positions (on DTensors, each
+    rank's batch and heads: :func:`repro_torch.kernels.local.attention`)."""
+    if local.is_dtensor(q):
+        return local.attention(q, k, v, q_pos, k_pos, lambda *a: _attend(
+            *a, causal=causal, window=window, softcap=softcap))
     args = (q.contiguous(), k.contiguous(), v.contiguous(),
             q_pos.to(torch.int32).contiguous(),
             k_pos.to(torch.int32).contiguous())
@@ -194,6 +208,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(B, S, H, dh) x (H, dh, d) -> (B, S, d), one matrix product."""
     H, dh, d = wo.shape
+    if local.is_dtensor(wo):    # reshaped shard by shard
+        return local.merge_dims(out, 2) @ local.merge_dims(wo, 0)
     return out.reshape(*out.shape[:2], H * dh) @ wo.reshape(H * dh, d)
 
 
@@ -295,7 +311,15 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
 # --------------------------------------------------------------------------
 def embed(table: torch.Tensor, cfg: ModelConfig,
           tokens: torch.Tensor) -> torch.Tensor:
-    x = F.embedding(tokens, table)
+    """The rows of ``table`` (vocab, d) at ``tokens``.  A DTensor table is
+    looked up row-wise: its vocab shards kept and its d gathered, each
+    rank masking the tokens outside its vocab rows, and the partial rows
+    summed at once (DTensor's row-wise embedding)."""
+    if local.is_dtensor(table):
+        x = local.keep_shards(F.embedding(
+            tokens, local.keep_shards(table, (0,))), range(tokens.dim()))
+    else:
+        x = F.embedding(tokens, table)
     if cfg.scale_embed:
         # sqrt(d) is rounded to the table's dtype before it multiplies, as
         # in the reference: 55.43 becomes 55.5 in bfloat16 at d = 3072.
@@ -313,13 +337,24 @@ def logits_from(table: torch.Tensor, head: Optional[torch.Tensor],
 # --------------------------------------------------------------------------
 # loss
 # --------------------------------------------------------------------------
+def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``: (..., V) and (...) -> (...).  On a DTensor
+    whose vocab dim may be sharded, the label's logit is picked by a mask
+    and a sum over the vocab (exact: every other term is 0), which DTensor
+    shards; its gather is not supported there."""
+    if local.is_dtensor(logits):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        return torch.where(vocab == labels[..., None], logits,
+                           0.0).sum(dim=-1)
+    return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token negative log-likelihood, masked where ``mask`` is
     given (the reference's ``cross_entropy``)."""
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    nll = lse - label_logits(logits, labels)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -29,8 +29,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import local
+from repro_torch.sharding import constrain
 
 from .layers import _act
+
+# The logical axes of the expert buffers (Bg, E, C, D), as the reference
+# constrains them.
+BUF_AXES = ("batch", "expert", "capacity", "act_embed")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -70,13 +76,19 @@ class MoE(nn.Module):
 def route(p, cfg: ModelConfig, x: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (..., d) -> (probs (..., E) float32, renormalised gates (..., k),
-    expert ids (..., k) int64): the router's softmax and its top k."""
-    k = cfg.moe.top_k
+    expert ids (..., k) int64): the router's softmax and its top k.  On a
+    DTensor x the gates and ids are those of this rank's rows of x."""
     probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    return (probs, *_top_k(_rows_local(probs, x), cfg.moe.top_k))
+
+
+def _top_k(probs: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(renormalised gates, ids) of the k largest of each row."""
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, ids = vals[..., :k], ids[..., :k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    return probs, gates, ids
+    return gates, ids
 
 
 def capacity_of(cfg: ModelConfig, tokens: int) -> int:
@@ -124,41 +136,93 @@ def _dispatch(x: torch.Tensor, gates: torch.Tensor, ids: torch.Tensor,
             counts.to(torch.int32))
 
 
+def _whole_groups(x: torch.Tensor, G: int) -> torch.Tensor:
+    """x itself; on a DTensor, x with only its batch shards kept, gathered
+    whole when a rank's rows would split a group of ``G`` rows."""
+    if not local.is_dtensor(x):
+        return x
+    x = local.keep_shards(x, (0,))
+    if (x.shape[0] // local.shard_count(x, 0)) % G:
+        x = local.keep_shards(x, ())
+    return x
+
+
+def _rows_local(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """t itself; on a DTensor ``like``, this rank's shard of t placed as
+    ``like``.  Routing, dispatch and combine index tokens within a group
+    of rows, so they run on these local rows."""
+    if not local.is_dtensor(like):
+        return t
+    return local.to_placements(t, like.placements).to_local()
+
+
+def _rows_wrap(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_rows_local`: local rows back to a DTensor
+    placed as ``like``."""
+    if not local.is_dtensor(like):
+        return t
+    return local.wrap(t, like.device_mesh, like.placements)
+
+
+def _global_counts(counts: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """counts itself; on a DTensor ``like``, this rank's counts summed over
+    the ranks that hold other rows and replicated."""
+    if not local.is_dtensor(like):
+        return counts
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = like.device_mesh
+    summed = local.wrap(counts, mesh, [
+        Partial() if isinstance(q, Shard) else Replicate()
+        for q in like.placements])
+    return summed.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
 def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
               capacity: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux loss (float32 scalar), expert
-    counts (E,) int32 summed over groups): the reference's ``moe_block``."""
+    counts (E,) int32 summed over groups): the reference's ``moe_block``.
+    On a DTensor x the router, the experts and the shared experts are
+    DTensor products, the expert buffers constrained to ``BUF_AXES`` as in
+    the reference; routing, dispatch and combine run on each rank's rows
+    (the rows of a group stay on one rank, else the batch is gathered
+    first); the aux loss and the counts are over the global batch."""
     mo = cfg.moe
     B, S, D = x.shape
     E, k = mo.n_experts, mo.top_k
+    G = groups(B, S)
+    x = _whole_groups(x, G)
     probs, gates, ids = route(p, cfg, x)
 
     # Switch aux loss: E · Σ_e (mean router prob) · (fraction of top-1)
     me = probs.mean(dim=(0, 1))
     top1 = torch.argmax(probs, dim=-1)
-    ce = torch.nn.functional.one_hot(top1, E).float().mean(dim=(0, 1))
+    ce = (top1[..., None] == torch.arange(E, device=x.device)
+          ).float().mean(dim=(0, 1))
     aux = mo.aux_loss_weight * E * torch.sum(me * ce)
 
-    G = groups(B, S)
-    Bg, Sg = B // G, G * S
+    Bl = gates.shape[0]
+    Bg, Sg = Bl // G, G * S
     capacity = capacity_of(cfg, Sg) if capacity is None \
         else max(int(capacity), 1)
     buf, slot, gate, keep, counts = _dispatch(
-        x.reshape(Bg, Sg, D), gates.reshape(Bg, Sg, k),
+        _rows_local(x, x).reshape(Bg, Sg, D), gates.reshape(Bg, Sg, k),
         ids.reshape(Bg, Sg, k), E, capacity)
 
     # the experts, batched over groups and experts
+    buf = constrain(_rows_wrap(buf, x), BUF_AXES)
     h = _act(buf @ p["wg"], cfg.activation) * (buf @ p["wi"])
-    y_buf = (h @ p["wo"]).view(Bg, E * capacity, D)
+    y_buf = _rows_local(constrain(h @ p["wo"], BUF_AXES), x
+                        ).view(Bg, E * capacity, D)
 
     # combine: gates cast to the activation dtype before they multiply;
     # each token's k contributions summed in choice order
     g = (gate * keep).to(y_buf.dtype)
     gathered = torch.gather(
         y_buf, 1, slot[..., None].expand(Bg, Sg * k, D)) * g[..., None]
-    out = gathered.view(Bg, Sg, k, D).sum(dim=2).view(B, S, D)
+    out = _rows_wrap(gathered.view(Bg, Sg, k, D).sum(dim=2).view(Bl, S, D),
+                     x)
     if mo.n_shared:
         h = _act(x @ p["shared_wg"], cfg.activation) * (x @ p["shared_wi"])
         out = out + h @ p["shared_wo"]
-    return out, aux, counts.sum(dim=0, dtype=torch.int32)
+    return out, aux, _global_counts(counts.sum(dim=0, dtype=torch.int32), x)

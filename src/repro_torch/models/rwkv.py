@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import Wkv6Function, wkv6
+from repro_torch.kernels import Wkv6Function, local, wkv6
 
 from .layers import _differentiable
 
@@ -64,6 +64,14 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
+def _heads(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """(..., H·dh) -> (..., H, dh); a DTensor shard by shard
+    (``kernels.local.split_dim``)."""
+    if local.is_dtensor(t):
+        return local.split_dim(t, t.dim() - 1, dh)
+    return t.reshape(*t.shape[:-1], -1, dh)
+
+
 def rwkv_time_mix(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                   x: torch.Tensor, state: Optional[Dict] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -87,21 +95,25 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     dd = p["w0"] + (lerp(p["mu_w"]) @ p["w_lora_a"]) @ p["w_lora_b"]
     w = torch.exp(-torch.exp(dd.float()))        # (B, T, D) in (0, 1)
 
-    hs = (B, T, H, dh)
     S = (state["S"] if state is not None else
          torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device))
-    args = (r.reshape(hs).contiguous(), k.reshape(hs).contiguous(),
-            v.reshape(hs).contiguous(), w.reshape(hs).contiguous(),
-            p["u"].reshape(H, dh).float().contiguous())
+    args = (*(_heads(t, dh).contiguous() for t in (r, k, v, w)),
+            _heads(p["u"], dh).float().contiguous())
     if _differentiable(*args):
-        y, S = Wkv6Function.apply(*args, S)
+        call = Wkv6Function.apply
     else:
-        y = wkv6(*args, S)
+        call = wkv6
+    if local.is_dtensor(args[0]):   # each rank's batch and heads
+        out = local.wkv6(*args, S, call)
+    else:
+        out = call(*args, S)
+    y, S = out if isinstance(out, tuple) else (out, S)
     # Per-head group norm with the population variance, then the gate in
     # the activation dtype.
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
-    y = ((y - mean) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, T, D)
+    y = (y - mean) * torch.rsqrt(var + GROUP_NORM_EPS)
+    y = local.merge_dims(y, 2) if local.is_dtensor(y) else y.reshape(B, T, D)
     y = y * (1.0 + p["ln_x"].float())
     y = y.to(x.dtype) * F.silu(g)
     return y @ p["wo"], {"S": S, "last_tm": x[:, -1]}

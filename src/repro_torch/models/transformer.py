@@ -42,17 +42,24 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import constrain
 
 from . import moe as moe_mod
 from . import rglru, rwkv
 from .layers import (attention, cross_entropy, embed, init_attention_cache,
-                     init_mla_cache, logits_from, mla_angles, mla_attention,
-                     mla_rope_cfg, mlp, rms_norm, rope_angles, rope_dim)
+                     init_mla_cache, label_logits, logits_from, mla_angles,
+                     mla_attention, mla_rope_cfg, mlp, rms_norm, rope_angles,
+                     rope_dim)
 
 # Every family the reference knows; this module builds all but encdec.
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid", "encdec")
 # The families whose layers are the dense blocks.
 DENSE_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+# The logical axes the reference constrains the residual stream and the
+# logits to (``sharding.constrain``: a no-op outside a sharding context).
+ACT_AXES = ("batch", "seq", "act_embed")
+LOGIT_AXES = ("batch", "seq", "vocab_out")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -180,7 +187,7 @@ class DenseBlock(nn.Module):
                               self.rope_cfg, cache)
         else:
             h = attention(self.attn, cfg, h, positions, angles, cache)
-        x = x + h
+        x = constrain(x + h, ACT_AXES)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.moe is not None:
             h, aux, counts = self.moe(h)
@@ -188,7 +195,7 @@ class DenseBlock(nn.Module):
             h = mlp(self.mlp, h, cfg.activation)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             counts = torch.zeros((1,), dtype=torch.int32, device=x.device)
-        return x + h, aux, counts
+        return constrain(x + h, ACT_AXES), aux, counts
 
 
 class RWKVBlock(nn.Module):
@@ -216,13 +223,13 @@ class RWKVBlock(nn.Module):
         cfg = self.cfg
         h, tm = rwkv.rwkv_time_mix(self.block, cfg,
                                    rms_norm(x, self.ln1, cfg.norm_eps), state)
-        x = x + h
+        x = constrain(x + h, ACT_AXES)
         h, cm = rwkv.rwkv_channel_mix(self.block, cfg,
                                       rms_norm(x, self.ln2, cfg.norm_eps),
                                       state)
         if state is not None:
             state.update(tm, **cm)
-        return x + h
+        return constrain(x + h, ACT_AXES)
 
 
 def _uniform(shape, dtype, device, generator: Optional[torch.Generator],
@@ -279,9 +286,10 @@ class HybridSublayer(nn.Module):
             h = rglru.rglru_block(self.mix, cfg, h, state)
         else:
             h = attention(self.mix, cfg, h, positions, angles, state)
-        x = x + h
-        return x + mlp(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps),
-                       cfg.activation)
+        x = constrain(x + h, ACT_AXES)
+        return constrain(x + mlp(self.mlp, rms_norm(x, self.ln2,
+                                                    cfg.norm_eps),
+                                 cfg.activation), ACT_AXES)
 
 
 class HybridGroup(nn.ModuleDict):
@@ -360,7 +368,8 @@ class Transformer(nn.Module):
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return logits_from(self.embed, self.head, self.cfg, x)
+        return constrain(logits_from(self.embed, self.head, self.cfg, x),
+                         LOGIT_AXES)
 
     def forward(self, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None,
@@ -380,6 +389,7 @@ class Transformer(nn.Module):
         x = embed(self.embed, cfg, tokens)
         if cfg.family == "vlm" and embeds is not None:
             x = torch.cat([embeds.to(x.dtype) @ self.vis_proj, x], dim=1)
+        x = constrain(x, ACT_AXES)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         info = {}
         if self.recurrent:  # every layer from a zero state
@@ -417,7 +427,7 @@ class Transformer(nn.Module):
         a 0-d tensor) or the (S,) positions of a chunk (unused by the ssm
         family, as in the reference).  Returns (logits (B, S, V) float32,
         state), the state updated in place."""
-        x = embed(self.embed, self.cfg, tokens)
+        x = constrain(embed(self.embed, self.cfg, tokens), ACT_AXES)
         if self.recurrent:
             for block, st in zip(self.blocks, state["layers"]):
                 x = block(x, st)
@@ -533,11 +543,10 @@ def chunked_ce_from_hidden(params: Params, cfg: ModelConfig,
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     denom = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in range(0, S, chunk):
-        logits = logits_from(params["embed"], params.get("head"), cfg,
-                             x[:, a:a + chunk])
+        logits = constrain(logits_from(params["embed"], params.get("head"),
+                                       cfg, x[:, a:a + chunk]), LOGIT_AXES)
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1,
-                          labels[:, a:a + chunk, None].long())[..., 0]
+        ll = label_logits(logits, labels[:, a:a + chunk])
         mc = mask[:, a:a + chunk]
         tot = tot + ((lse - ll) * mc).sum()
         denom = denom + mc.sum()

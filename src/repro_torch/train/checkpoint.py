@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.faultpoints import fault_point
+from repro_torch.kernels.local import is_dtensor
 
 INTEGRITY_NAME = "integrity.json"
 
@@ -99,12 +100,32 @@ def _file_digest(path: str) -> Tuple[str, int]:
     return h.hexdigest(), n
 
 
+def _has_dtensors(trees: Dict[str, Any]) -> bool:
+    return any(is_dtensor(leaf) for tree in trees.values()
+               for _, leaf in _leaves(tree))
+
+
 def save(ckpt_dir: str, step: int, trees: Dict[str, Any],
          meta: Optional[Dict] = None, keep: int = 3) -> str:
     """trees: {"params": ..., "opt_state": ...}, nested dicts of tensors
-    (or numpy arrays).  Returns the step dir."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    (or numpy arrays).  Returns the step dir.  Trees of DTensors (a
+    sharded run) are saved whole, the same bytes as unsharded ones: every
+    rank must call this, and rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if _has_dtensors(trees):
+        # saved under a mesh: every rank gathers the full tensors (a
+        # collective), rank 0 writes the reference's bytes, and the others
+        # wait for it
+        import torch.distributed as dist
+        trees = {name: _unflatten(tree, {k: leaf.full_tensor()
+                                         if is_dtensor(leaf) else leaf
+                                         for k, leaf in _leaves(tree)})
+                 for name, tree in trees.items()}
+        if dist.get_rank() == 0:
+            save(ckpt_dir, step, trees, meta, keep)
+        dist.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         fault_point("ckpt.pre_write")
@@ -235,11 +256,15 @@ def _torch_dtype(leaf: Any) -> torch.dtype:
 
 
 def restore(ckpt_dir: str, templates: Dict[str, Any],
-            step: Optional[int] = None
+            step: Optional[int] = None,
+            shardings: Optional[Dict[str, Any]] = None
             ) -> Tuple[int, Dict[str, Any]]:
     """Restore trees shaped like ``templates`` (nested dicts whose leaves
     give each shape and dtype; a template on the ``meta`` device costs no
-    memory), as tensors on the host.
+    memory), as tensors on the host.  ``shardings`` (per tree, nested
+    dicts matching the template whose leaves are ``(mesh, placements)``)
+    restores those trees as DTensors: every rank reads the whole file
+    and keeps its own shards — the elastic re-mesh path.
 
     With ``step=None`` the newest *verified* checkpoint is restored:
     steps failing integrity verification are skipped (warned about, and
@@ -284,5 +309,9 @@ def restore(ckpt_dir: str, templates: Dict[str, Any],
                                      f"{tuple(t.shape)} != "
                                      f"{tuple(leaf.shape)}")
                 data[key] = t.to(_torch_dtype(leaf))
+        if shardings and name in shardings:
+            from repro_torch.sharding import distribute
+            sh = dict(_leaves(shardings[name]))
+            data = {k: distribute(t, sh[k]) for k, t in data.items()}
         out[name] = _unflatten(template, data)
     return step, out

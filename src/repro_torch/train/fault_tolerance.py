@@ -8,9 +8,10 @@ The PyTorch port of the reference's ``repro/train/fault_tolerance.py``.
   corrupted by the very crash that triggered the restart is skipped and
   the newest *verified* step is used instead (``checkpoint.restore``).
 * :func:`remesh` — restores a checkpoint for a different shard layout.
-  Checkpoints store unsharded arrays, so with no mesh the restore is
-  replicated; a restore under a real device mesh waits for multi-device
-  (ROADMAP.md queue 1, item 7).
+  Checkpoints store unsharded arrays (a sharded run saves them whole), so
+  any mesh can read any checkpoint: with no mesh the restore is
+  replicated host tensors, under a mesh with an axes tree each parameter
+  is a DTensor placed by the reference's ``PARAM_RULES``.
 """
 from __future__ import annotations
 
@@ -49,10 +50,23 @@ def run_with_restarts(make_trainer: Callable[[], Trainer], steps: int,
 
 def remesh(ckpt_dir: str, cfg, templates: Dict[str, Any], new_mesh=None,
            axes_tree=None):
-    """Restore a checkpoint for a new shard layout: replicated (no mesh),
-    as host tensors shaped like ``templates``."""
-    if new_mesh is not None or axes_tree is not None:
-        raise NotImplementedError(
-            "a restore sharded over a device mesh is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
-    return ckpt_mod.restore(ckpt_dir, templates)
+    """Restore a checkpoint under ``new_mesh`` (elastic re-mesh), as the
+    reference's: with an ``axes_tree`` (the logical axes of the
+    ``"params"`` template, ``models.convert.axes_tree``) the parameters
+    come back as DTensors on ``new_mesh`` placed by ``rules_for(cfg)``;
+    otherwise every tree restores replicated, as host tensors."""
+    shardings = None
+    if new_mesh is not None and axes_tree is not None:
+        from repro_torch.sharding import rules_for, tree_shardings
+        shardings = {"params": _tree_map2(
+            lambda leaf, axes: tree_shardings(
+                {"x": leaf}, {"x": axes}, rules_for(cfg), new_mesh)["x"],
+            templates["params"], axes_tree)}
+    return ckpt_mod.restore(ckpt_dir, templates, shardings=shardings)
+
+
+def _tree_map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)

@@ -106,6 +106,44 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig) -> Callable:
     return train_step
 
 
+def shard_train_state(cfg: ModelConfig, params: Params,
+                      opt_state: Dict[str, Any], mesh
+                      ) -> Tuple[Params, Dict[str, Any]]:
+    """``params`` and the AdamW state (the same full tensors on every
+    rank) as DTensors on ``mesh``: each parameter and its two moments
+    placed by the reference's ``PARAM_RULES`` (``rules_for(cfg)``) over
+    its logical axes (``models.convert.param_axes``), the step count
+    replicated.  Each rank keeps its own shards; nothing is sent."""
+    from repro_torch.models.convert import param_axes
+    from repro_torch.sharding import (distribute, distribute_tree,
+                                      rules_for, sharding_for,
+                                      tree_shardings)
+    sh = tree_shardings(params, param_axes(cfg), rules_for(cfg), mesh)
+    step = distribute(opt_state["step"], sharding_for((), (), {}, mesh))
+    return distribute_tree(params, sh), {
+        "m": distribute_tree(opt_state["m"], sh),
+        "v": distribute_tree(opt_state["v"], sh), "step": step}
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                            mesh) -> Callable:
+    """:func:`make_train_step` on DTensor parameters, optimizer state and
+    batch (:func:`shard_train_state`, ``data.device_batch(...,
+    mesh=mesh)``) under the reference's activation rules
+    (``sharding.activation_sharding``): the twin of the reference's train
+    step jitted with shardings.  The kernels run on each rank's shards
+    (``kernels.local``)."""
+    from repro_torch.sharding import activation_sharding, rules_for
+    step = make_train_step(cfg, opt_cfg)
+    act_rules = rules_for(cfg, param=False)
+
+    def sharded_step(params, opt_state, batch):
+        with activation_sharding(mesh, act_rules):
+            return step(params, opt_state, batch)
+
+    return sharded_step
+
+
 def _expert_probe_leaf(cfg: ModelConfig, expert: int) -> Callable:
     """A per-expert instrumented region: run expert ``expert``'s gated FFN
     (layer 0's weights from the live params) on the shard's probe-token
@@ -323,17 +361,21 @@ def _host(tree: Params) -> Params:
 
 class Trainer:
     """Trains ``cfg`` on ``device`` (None: the card, which raises without
-    one; ``"cpu"`` runs the kernels' plain versions).  The initial weights
+    one; ``"cpu"`` runs the kernels' plain versions).  ``mesh`` is kept as
+    :attr:`mesh` and not used, as in the reference.  The initial weights
     come from a ``torch.Generator`` seeded with ``tcfg.seed`` on the
     device; :meth:`adopt_restore` replaces them (a checkpoint, or the
     reference's weights carried across)."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
                  data_cfg: DataConfig, tcfg: TrainerConfig,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None, mesh=None):
         check_trainable(cfg)
         self.cfg, self.opt_cfg, self.data_cfg, self.tcfg = (
             cfg, opt_cfg, data_cfg, tcfg)
+        # stored and used nowhere else, as the reference's Trainer does
+        # (its loop.py:293-296); a sharded step is make_sharded_train_step
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.monitor = StragglerMonitor(tcfg.straggler_threshold)
         self.history: List[Dict] = []

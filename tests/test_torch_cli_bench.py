@@ -298,7 +298,11 @@ def test_bench_run_prints_csv(capsys):
     for line in lines[1:]:
         assert float(line.split(",", 2)[1]) > 0
     with pytest.raises(SystemExit):
-        main(["--only", "roofline"])
+        main(["--only", "no-such-section"])
+    assert main(["--only", "roofline", "--results",
+                 "no-such-dir/*.json"]) == 0
+    assert capsys.readouterr().out.splitlines()[1].startswith(
+        "roofline_summary,0.0,no dry-run results found")
     with pytest.raises(SystemExit):
         main(["--help"])
     assert "roofline" in capsys.readouterr().out

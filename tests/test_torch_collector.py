@@ -200,6 +200,45 @@ def _static_costs(tree_cls):
     return tree, [a.region_id, b.region_id], costs
 
 
+def test_runner_times_cpu_regions_on_the_calling_thread():
+    """Fault 5's pin: on the CPU every timed call (and the warmup and the
+    cost count) runs with PyTorch's intra-op pool at one thread, whose
+    spinning workers otherwise charged a tiny region milliseconds of
+    process CPU time; the caller's thread count comes back after."""
+    from repro_torch.core import RegionTree, TimedRegionRunner
+    seen = []
+    tree = RegionTree("t")
+    tree.add("r", fn=lambda s, d: seen.append(torch.get_num_threads()) or s)
+    before = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        TimedRegionRunner(tree, warmup=1, repeats=2, device="cpu").run(
+            [0.0, 0.0], [0.0, 0.0])
+        assert seen and set(seen) == {1}
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_cost_of_counts_the_collectives_it_issues():
+    """``COMM_BYTES``' source: no process group, no collective; the
+    reference's op names for what DTensor and torch.distributed issue."""
+    from repro_torch.core.hlo import COLLECTIVE_OPS, collective_op, costs_of
+    *_, coll = costs_of(lambda: torch.ones(4) @ torch.ones(4))
+    assert coll.total_bytes == 0 and coll.summary() == "none"
+    ops = torch.ops
+    assert collective_op(ops._c10d_functional.all_gather_into_tensor
+                         .default) == "all-gather"
+    assert collective_op(ops._c10d_functional.reduce_scatter_tensor
+                         .default) == "reduce-scatter"
+    assert collective_op(ops._c10d_functional.all_reduce.default) == \
+        "all-reduce"
+    assert collective_op(ops._c10d_functional.all_to_all_single.default) \
+        == "all-to-all"
+    assert collective_op(ops.aten.mm.default) == ""
+    assert set(COLLECTIVE_OPS) == set(ref_hlo.COLLECTIVE_OPS)
+
+
 def test_static_trace_saves_the_reference_bytes(tmp_path):
     tree, rids, costs = _static_costs(RegionTree)
     ref_tree, _, _ = _static_costs(RefTree)

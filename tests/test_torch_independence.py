@@ -36,13 +36,18 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, env=env,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    # core (12), kernels (5), configs (12), scenarios (7), cli (3),
-    # models (8), serve (3), launch (2), device (1), the package itself ...
+    # core (12), kernels (6), configs (12), scenarios (7), cli (4),
+    # models (8), serve (3), launch (7), sharding (2), optim (3), device
+    # (1), the package itself ...
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 45
+    assert int(count) >= 56
     for name in ("models.rglru", "models.encdec", "configs.phi3_vision_4_2b",
                  "configs.recurrentgemma_9b", "configs.seamless_m4t_medium",
-                 "data.pipeline"):
+                 "data.pipeline", "sharding", "sharding.rules",
+                 "optim.compression", "launch.mesh", "launch.specs",
+                 "launch.roofline", "launch.static_analyzer",
+                 "launch.dryrun", "kernels.local", "bench.roofline_report",
+                 "cli.render_experiments", "examples.dryrun_triage"):
         assert f"repro_torch.{name}" in names.split(), name
 
 

@@ -473,16 +473,20 @@ class TestTraining:
             np.testing.assert_allclose(la, lc, rtol=1e-4)
 
     def test_remesh_restores_replicated_and_refuses_a_mesh(self):
+        """Without a mesh, and (as the reference) with a mesh but no axes
+        tree, the restore is replicated host tensors; a mesh with an axes
+        tree restores DTensors (``tests/test_torch_sharding.py``, since
+        the restore under a mesh was ported)."""
         with tempfile.TemporaryDirectory() as d:
             t = make_trainer(d, steps=1)
             t.run()
-            step, trees = remesh(d, CFG, t.checkpoint_templates())
-            assert step == 1
             want = params_to_tree(t.params, CFG)
-            assert torch.equal(trees["params"]["layers"]["attn"]["wq"],
-                               want["layers"]["attn"]["wq"])
-            with pytest.raises(NotImplementedError, match="item 7"):
-                remesh(d, CFG, t.checkpoint_templates(), new_mesh=object())
+            for mesh in (None, object()):
+                step, trees = remesh(d, CFG, t.checkpoint_templates(),
+                                     new_mesh=mesh)
+                assert step == 1
+                assert torch.equal(trees["params"]["layers"]["attn"]["wq"],
+                                   want["layers"]["attn"]["wq"])
 
 
 class TestStragglerMonitor:
