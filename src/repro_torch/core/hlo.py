@@ -178,11 +178,17 @@ def is_dtensor_type(t: type) -> bool:
     return t.__module__.startswith("torch.distributed.tensor")
 
 
+# In-place writes of indexed slices of a buffer (a decode cache's new
+# slots: ``models/layers.py::_write_cache``).
+_INDEXED_WRITES = (torch.ops.aten.index_copy_.default,)
+
+
 class _CostMode(TorchDispatchMode):
     """Counts what each aten op on plain tensors does: its FLOPs (the
     formulas of ``torch.utils.flop_counter``, matrix products and
     convolutions only), the bytes of every tensor it reads and writes
-    (view ops, which move no data, skipped) and, for a collective, its
+    (view ops, which move no data, skipped; an indexed write in place,
+    its index and values read and written) and, for a collective, its
     result's bytes under the reference's op name.  An op on DTensors is
     handed on (``NotImplemented``): DTensor runs it as ops on the local
     shards and collectives, which come back here, so every count is one
@@ -221,7 +227,14 @@ class _CostMode(TorchDispatchMode):
             c.bytes_by_op[op] = c.bytes_by_op.get(op, 0) + sum(
                 t.numel() * t.element_size() for t in _tensors(out))
             c.count_by_op[op] = c.count_by_op.get(op, 0) + 1
-        if not func.is_view:
+        if func in _INDEXED_WRITES:
+            # self, dim, index, values: the index and the values read, as
+            # many bytes written; the rest of the buffer is not touched
+            # (XLA counts its in-place dynamic-update-slice so)
+            index, values = args[2], args[3]
+            self.bytes += index.numel() * index.element_size() \
+                + 2 * values.numel() * values.element_size()
+        elif not func.is_view:
             self.bytes += sum(t.numel() * t.element_size() for t in tensors)
         return out
 

@@ -116,6 +116,16 @@ def wrap(local: torch.Tensor, mesh, placements):
     return DTensor.from_local(local, mesh, list(placements), run_check=False)
 
 
+def placed_as(t, like):
+    """``t`` (a DTensor, or a plain tensor whole on every rank) as a
+    DTensor placed as the DTensor ``like``."""
+    from torch.distributed.tensor import Replicate
+    if not is_dtensor(t):
+        mesh = like.device_mesh
+        t = wrap(t, mesh, [Replicate()] * mesh.ndim)
+    return to_placements(t, like.placements)
+
+
 def rmsnorm(x, w, eps: float, local: Callable):
     """RMSNorm of a DTensor's rows: ``local(x_local, w_full, eps)``."""
     x = to_placements(x, _placements(x, range(x.dim() - 1)))

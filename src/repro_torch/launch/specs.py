@@ -97,8 +97,8 @@ def state_shardings(state_specs: Any, mesh, global_batch: int,
     stacked layer dim; the port keeps a list of per-layer states, so it
     searches from dim 0) — over (pod, data), and the kv-head dim (size
     ``n_kv_heads``, two dims after the batch, past the seq dim) over model
-    where it divides; the rest replicated.  Non-tensor leaves (a cache's
-    ``idx``) stay as they are."""
+    where it divides; the rest replicated, a cache's 0-d ``idx``
+    included.  Non-tensor leaves stay as they are."""
     def one(s):
         if not isinstance(s, torch.Tensor):
             return s

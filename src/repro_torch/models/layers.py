@@ -101,10 +101,11 @@ def apply_rope(x: torch.Tensor, angles: Tuple[torch.Tensor, torch.Tensor],
 # --------------------------------------------------------------------------
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
                          dtype: torch.dtype,
-                         device: torch.device) -> Dict[str, object]:
+                         device: torch.device) -> Dict[str, torch.Tensor]:
     """A ring-buffer KV cache: ``min(max_len, window)`` slots with their
-    positions (unwritten slots hold ``UNWRITTEN``), and the host-side count
-    ``idx`` of tokens written so far."""
+    positions (unwritten slots hold ``UNWRITTEN``), and ``idx``, the count
+    of tokens written so far, an int32 scalar on the cache's device (the
+    reference's), so that a call reads no host value."""
     KV, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     if cfg.window is not None:
         max_len = min(max_len, cfg.window)
@@ -115,21 +116,51 @@ def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
                          device=device),
         "pos": torch.full((max_len,), UNWRITTEN, dtype=torch.int32,
                           device=device),
-        "idx": 0,
+        "idx": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
-def cache_write_slot(idx: int, S: int, max_len: int) -> int:
+def cache_write_slot(idx, S: int, max_len: int, ring: bool = True):
     """First slot an S-token write lands in.  The reference writes at
-    ``idx % max_len`` for one token and at ``idx`` for a chunk, through
-    ``lax.dynamic_update_slice_in_dim``, which clamps the start into
-    ``[0, max_len - S]``: a chunk written past the end of a window-sized
-    cache overwrites the last ``S`` slots (layers.py:286-305)."""
+    ``idx % max_len`` for one token (``ring``; MLA's cache has no ring)
+    and at ``idx`` for a chunk, through ``lax.dynamic_update_slice_in_dim``,
+    which clamps the start into ``[0, max_len - S]``: a chunk written past
+    the end of a window-sized cache overwrites the last ``S`` slots
+    (layers.py:286-305).  ``idx`` a host int gives an int; a 0-d tensor
+    gives a 0-d tensor on its device, computed there.  The shapes are
+    checked on the host."""
     if S > max_len:
         raise ValueError(f"a {S}-token write does not fit a {max_len}-slot "
                          f"cache")
-    write = idx % max_len if S == 1 else idx
+    write = idx % max_len if S == 1 and ring else idx
+    if isinstance(write, torch.Tensor):
+        return write.clamp(0, max_len - S)
     return min(max(write, 0), max_len - S)
+
+
+def _write_cache(cache: Dict[str, torch.Tensor], S: int, ring: bool,
+                 writes) -> None:
+    """Write ``S`` tokens into ``cache`` in place, at the slots
+    :func:`cache_write_slot` gives for its ``idx``, and advance ``idx`` by
+    ``S``: ``writes`` holds (name, dim, values) of each buffer written,
+    the slots along ``dim``.  Slots, writes and the count stay on the
+    device (``index_copy_``), so the call reads no host value and keeps
+    every buffer at its address.  On DTensors (the dry-run) each rank
+    writes its own shards: the slot dim is never sharded, and the values
+    are redistributed to the buffer's placements first."""
+    idx = cache["idx"]
+    name, dim, _ = writes[0]
+    start = cache_write_slot(idx.to_local() if local.is_dtensor(idx) else idx,
+                             S, cache[name].shape[dim], ring)
+    slots = start + torch.arange(S, device=start.device)     # int64
+    for name, dim, values in writes:
+        buf = cache[name]
+        values = values.to(buf.dtype)
+        if local.is_dtensor(buf):
+            buf, values = buf.to_local(), \
+                local.placed_as(values, buf).to_local()
+        buf.index_copy_(dim, slots, values)
+    idx.add_(S)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -144,7 +175,7 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor,
               angles: Optional[Tuple[torch.Tensor, torch.Tensor]],
-              cache: Optional[Dict[str, object]] = None,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
               kv_override: Optional[Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]] = None
               ) -> torch.Tensor:
@@ -170,17 +201,12 @@ def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     v = _project(x, p["wv"])
     k_pos = positions
     if cache is not None:
-        S = x.shape[1]
-        ck, cv = cache["k"], cache["v"]
-        start = cache_write_slot(cache["idx"], S, ck.shape[1])
-        ck[:, start:start + S] = k.to(ck.dtype)
-        cv[:, start:start + S] = v.to(cv.dtype)
-        cache["pos"][start:start + S] = positions.to(torch.int32)
-        cache["idx"] += S
+        _write_cache(cache, x.shape[1], True,
+                     (("k", 1, k), ("v", 1, v), ("pos", 0, positions)))
         # the cache pinned to its (batch x kv-head) sharding, as the
         # reference's
-        k = constrain(ck, ("batch", "seq", "act_kv", None))
-        v = constrain(cv, ("batch", "seq", "act_kv", None))
+        k = constrain(cache["k"], ("batch", "seq", "act_kv", None))
+        v = constrain(cache["v"], ("batch", "seq", "act_kv", None))
         k_pos = cache["pos"]
     out = _attend(q, k, v, positions, k_pos, causal=cfg.causal,
                   window=cfg.window, softcap=cfg.attn_logit_softcap)
@@ -230,10 +256,11 @@ def mla_angles(cfg: ModelConfig, positions: torch.Tensor
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
                    dtype: torch.dtype,
-                   device: torch.device) -> Dict[str, object]:
+                   device: torch.device) -> Dict[str, torch.Tensor]:
     """The latent cache: ``c_kv`` (B, max_len, r) and ``k_rope`` (B,
-    max_len, rope), written at ``idx`` (no ring, no window); slot i's key
-    sits at position i (``pos``)."""
+    max_len, rope), written at ``idx`` (no ring, no window; an int32
+    scalar on the device, as in :func:`init_attention_cache`); slot i's
+    key sits at position i (``pos``)."""
     m = cfg.mla
     return {
         "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
@@ -241,7 +268,7 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
         "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
                               dtype=dtype, device=device),
         "pos": torch.arange(max_len, dtype=torch.int32, device=device),
-        "idx": 0,
+        "idx": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
@@ -249,7 +276,8 @@ def mla_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                   x: torch.Tensor, positions: torch.Tensor,
                   angles: Tuple[torch.Tensor, torch.Tensor],
                   rope_cfg: ModelConfig,
-                  cache: Optional[Dict[str, object]] = None) -> torch.Tensor:
+                  cache: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> torch.Tensor:
     """MLA: keys and values compressed to a per-token latent of rank r plus
     one rope key shared by the heads; the cache stores only those.
 
@@ -268,14 +296,10 @@ def mla_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     k_rope = apply_rope(k_rope[:, :, None, :], angles, rope_cfg)[:, :, 0]
     k_pos = positions
     if cache is not None:
-        S = x.shape[1]
-        cc, cr = cache["c_kv"], cache["k_rope"]
         # lax.dynamic_update_slice_in_dim clamps the start into the cache
-        start = min(max(cache["idx"], 0), cc.shape[1] - S)
-        cc[:, start:start + S] = c_kv.to(cc.dtype)
-        cr[:, start:start + S] = k_rope.to(cr.dtype)
-        cache["idx"] += S
-        c_kv, k_rope, k_pos = cc, cr, cache["pos"]
+        _write_cache(cache, x.shape[1], False,
+                     (("c_kv", 1, c_kv), ("k_rope", 1, k_rope)))
+        c_kv, k_rope, k_pos = cache["c_kv"], cache["k_rope"], cache["pos"]
     kv = _project(c_kv, p["wkv_b"])
     k_nope, v = kv[..., :nope], kv[..., nope:]
     H = k_nope.shape[2]

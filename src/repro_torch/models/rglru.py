@@ -114,7 +114,7 @@ def rglru_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     else:
         hs = rglru_scan(a, bx, h0)
         h = hs[:, -1]
-    if state is not None:
-        state["conv"] = new_conv
-        state["h"] = h
+    if state is not None:   # in place: the state keeps its addresses
+        state["conv"].copy_(new_conv)
+        state["h"].copy_(h)
     return hs.to(x.dtype) @ p["w_out"]

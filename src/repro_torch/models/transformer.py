@@ -28,7 +28,11 @@ KV caches (:func:`layers.init_attention_cache`) for attention, latent
 caches (:func:`layers.init_mla_cache`) for MLA, the WKV state and the two
 token-shift carries for the ssm family, and for the hybrid family one
 dict a block of each sublayer's state (a KV cache, or the RG-LRU's conv
-carry and float32 ``h``).
+carry and float32 ``h``).  A decode call writes every state tensor in
+place, where it lies, and rebinds no entry; it reads no host value (a
+cache's ``idx`` is a tensor on the device) and copies nothing to the
+host.  So a CUDA graph captured over one call replays the next one
+(``serve/runtime.py``), given its tokens and positions in tensors.
 """
 from __future__ import annotations
 
@@ -219,7 +223,8 @@ class RWKVBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 state: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-        """x (B, T, d); ``state`` (decode) is updated in place."""
+        """x (B, T, d); ``state`` (decode) is updated in place, each
+        tensor at its address."""
         cfg = self.cfg
         h, tm = rwkv.rwkv_time_mix(self.block, cfg,
                                    rms_norm(x, self.ln1, cfg.norm_eps), state)
@@ -228,7 +233,9 @@ class RWKVBlock(nn.Module):
                                       rms_norm(x, self.ln2, cfg.norm_eps),
                                       state)
         if state is not None:
-            state.update(tm, **cm)
+            for key, value in (*tm.items(), *cm.items()):
+                if value is not state[key]:     # S is updated in place
+                    state[key].copy_(value)
         return constrain(x + h, ACT_AXES)
 
 
@@ -424,9 +431,12 @@ class Transformer(nn.Module):
                     pos: Union[int, torch.Tensor]
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """tokens (B, S); ``pos`` the position of a single token (an int or
-        a 0-d tensor) or the (S,) positions of a chunk (unused by the ssm
-        family, as in the reference).  Returns (logits (B, S, V) float32,
-        state), the state updated in place."""
+        a 0-d or (1,) tensor) or the (S,) positions of a chunk (unused by
+        the ssm family, as in the reference).  Returns (logits (B, S, V)
+        float32, state), the state updated in place.  With ``pos`` a
+        tensor the call reads no host value: a graph captured over it
+        replays with new tokens and positions written into the same
+        tensors."""
         x = constrain(embed(self.embed, self.cfg, tokens), ACT_AXES)
         if self.recurrent:
             for block, st in zip(self.blocks, state["layers"]):
@@ -448,11 +458,14 @@ class Transformer(nn.Module):
 def decode_positions(pos: Union[int, torch.Tensor],
                      device: torch.device) -> torch.Tensor:
     """A decode call's positions (S,) int32 on ``device``: ``pos`` an int
-    or a 0-d tensor (one token) or the (S,) positions of a chunk."""
+    or a 0-d tensor (one token) or the (S,) positions of a chunk.  An int
+    is filled on the device (no copy from the host), as a value the call
+    holds: a graph captured over it would replay that position, so a
+    graphed caller passes a tensor, which is used as it is (a view of
+    it, when it is 0-d)."""
     if isinstance(pos, torch.Tensor):
         positions = pos.to(device=device, dtype=torch.int32)
         return positions[None] if positions.dim() == 0 else positions
-    # filled on the device: no copy from the host
     return torch.full((1,), int(pos), dtype=torch.int32, device=device)
 
 

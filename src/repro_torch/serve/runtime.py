@@ -14,6 +14,25 @@ timed region, as the reference does; the other families take no frames
 call goes through the hand-written kernels: RMSNorm, and attention (every
 family but ssm, MLA included) or WKV-6 (ssm).
 
+The compiled decode call.  The reference jits ``decode_step`` and its
+warmup compiles each steady-state shape once.  Here each lane owns one
+decode state for the backend's life, allocated once (a new request
+resets it in place), and each (lane, call shape) a :class:`DecodeCall`:
+static token and position tensors, and on the card a CUDA graph captured
+over one call on the lane's state.  A call writes its tokens and
+positions into those tensors and replays the graph.  The graphs of the
+steady-state shapes, ``(1, chunk)`` and ``(1, 1)``, are captured at
+:meth:`TorchBackend.warmup`; another shape (a shorter last prefill
+chunk) on its first use, before its timed window opens.  A graph reads
+the addresses it was captured with, so a model's decode path must write
+every state tensor in place and rebind none, take its positions from
+the tensor it is given, read no host value and copy nothing to the host
+(a sync inside a capture is an error).  A capture or replay that fails
+raises with the lane, the shape and CUDA's error: nothing falls back to
+eager calls.  On the CPU there are no graphs: the same lane states and
+static inputs are used, and the model is called on them, so the CPU tests
+hold the in-place, fixed-address discipline.
+
 Measurement follows the reference: perf_counter walls around each call,
 ended by ``torch.cuda.synchronize`` on the card (the reference's
 ``block_until_ready``), and the calibrated CPU clock of
@@ -22,11 +41,8 @@ ride in the header meta so ``RegionTrace.reduce`` replays the
 quantization snap offline).  FLOPs and bytes per call shape come from an
 analytic count of the model (:func:`call_costs`) in place of the
 reference's HLO cost analysis: a FLOP counter cannot see a kernel called
-through ctypes.  :meth:`TorchBackend.warmup` makes one untimed call per
-steady-state shape, ``(1, chunk)`` and ``(1, 1)`` (the train corpus
-``warmup=1`` convention); for encdec on a state encoded from zero frames
-(the reference skips the warmup there only because it compiles a decode
-call per encoded state).
+through ctypes.  The timed window of a call holds the writes of its
+inputs, the replay and the sync.
 
 ``kv_append`` records quantities rather than time: the KV write happens
 inside the model call, so the region carries the appended bytes
@@ -37,8 +53,10 @@ argmax.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -212,6 +230,34 @@ def sample_costs(cfg) -> Tuple[float, float]:
     return float(cfg.vocab), float(4 * cfg.vocab + 4)
 
 
+def state_tensors(state) -> Iterator[torch.Tensor]:
+    """The tensors of a decode state (nested dicts and lists), in order."""
+    if isinstance(state, dict):
+        state = state.values()
+    if isinstance(state, torch.Tensor):
+        yield state
+        return
+    for item in state:
+        yield from state_tensors(item)
+
+
+@dataclasses.dataclass
+class DecodeCall:
+    """One lane's model call of one shape (1, k): its static inputs, the
+    tokens (1, k) and positions (k,) int32 that each call fills, and on the
+    card the CUDA graph captured over the call with its static logits (1,
+    k, V) (in the graph's own memory pool, which no other graph's replay
+    writes) and the kernel launches a replay makes."""
+
+    lane: int
+    k: int
+    tokens: torch.Tensor
+    positions: torch.Tensor
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    logits: Optional[torch.Tensor] = None
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
 class TorchBackend:
     """Execute lane events against the port's model, measured."""
 
@@ -243,12 +289,8 @@ class TorchBackend:
         root = self.tree.root.name
         self._rid = {p: self.tree.by_path(f"{root}/{p}").region_id
                      for p in (PREFILL, DECODE, KV_APPEND, SAMPLE)}
-        # Per-lane decode state.
-        self._state: List[Any] = [None] * lanes
-        self._pending_logits: List[Optional[torch.Tensor]] = [None] * lanes
-        self._prompt: List[Optional[np.ndarray]] = [None] * lanes
         self.outputs: Dict[int, List[int]] = {}
-        self.model_calls = 0       # decode_step calls, warmup included
+        self.model_calls = 0       # model calls (replays), warmup included
         self.encode_calls = 0      # encdec encodes, warmup included
         self.weight_bytes = decode_weight_bytes(cfg, model)
         self.enc_len = cfg.frontend_tokens if cfg.family == "encdec" else 0
@@ -265,51 +307,189 @@ class TorchBackend:
         if TorchBackend._cpu_clock is None:
             TorchBackend._cpu_clock = _pick_cpu_clock()
         self._clock, self._tick, self._clock_name = TorchBackend._cpu_clock
+        # Per-lane decode state, allocated once and owned for the
+        # backend's life: a new request resets its lane's tensors in place
+        # to the initial values kept in ``_initial``.
+        self._graphed = self.device.type == "cuda"
+        self._initial = self._new_state()
+        self._state: List[Any] = [self._new_state() for _ in range(lanes)]
+        self._calls: Dict[Tuple[int, int], DecodeCall] = {}
+        self._warm: set = set()    # shapes called eagerly before a capture
+        self._pending_logits: List[Optional[torch.Tensor]] = [None] * lanes
+        self._prompt: List[Optional[np.ndarray]] = [None] * lanes
+
+    # -- state ---------------------------------------------------------------
+    def _new_state(self):
+        """A new batch-1 decode state (an encdec's cross K/V zeros of
+        ``enc_len`` frames)."""
+        kw = {"enc_len": self.enc_len} if self.cfg.family == "encdec" else {}
+        return self.api.init_decode_state(1, self.max_len, **kw)
+
+    def _encode(self, embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """The encoder's output of ``embeds`` (1, T_enc, d) (None: zero
+        frames): one encode."""
+        if embeds is None:
+            embeds = torch.zeros((1, self.enc_len, self.cfg.d_model),
+                                 device=self.device)
+        self.encode_calls += 1
+        with torch.no_grad():
+            return self.model.encode(embeds.to(self.device))
+
+    def _set_cross(self, state, enc_out: torch.Tensor) -> None:
+        """Copy the cross K/V of ``enc_out`` into ``state``'s buffers."""
+        with torch.no_grad():
+            for layer, k, v in zip(self.model.dec_layers, state["cross_k"],
+                                   state["cross_v"]):
+                ck, cv = layer.cross_kv(enc_out)
+                k.copy_(ck)
+                v.copy_(cv)
+
+    def fresh_state(self, embeds: Optional[torch.Tensor] = None,
+                    lane: Optional[int] = None):
+        """Lane ``lane``'s decode state reset in place to the values
+        ``init_decode_state`` gives, every tensor at its address, and
+        returned; for encdec its cross K/V those of ``embeds`` (1, T_enc,
+        d) (None: zero frames), encoded once here.  Without ``lane``, a new
+        state of the same values that no lane owns."""
+        if lane is None:
+            state = self._new_state()
+        else:
+            state = self._state[lane]
+            for t, t0 in zip(state_tensors(state),
+                             state_tensors(self._initial)):
+                t.copy_(t0)
+        if self.cfg.family == "encdec":
+            self._set_cross(state, self._encode(embeds))
+        return state
 
     # -- model calls -------------------------------------------------------
     def _decode(self, state, tokens: torch.Tensor, pos):
         self.model_calls += 1
         return self.api.decode_step(self.model, state, tokens, pos)
 
-    def fresh_state(self, embeds: Optional[torch.Tensor] = None):
-        """A new lane's decode state; for encdec encoded from ``embeds``
-        (1, T_enc, d) (None: zero frames), its cross K/V computed once."""
-        if self.cfg.family != "encdec":
-            return self.api.init_decode_state(1, self.max_len)
-        if embeds is None:
-            embeds = torch.zeros((1, self.enc_len, self.cfg.d_model),
-                                 device=self.device)
-        self.encode_calls += 1
-        with torch.no_grad():
-            enc_out = self.model.encode(embeds.to(self.device))
-        return self.api.init_decode_state(1, self.max_len, model=self.model,
-                                          enc_out=enc_out)
+    def _warm_up(self, k: int) -> torch.Tensor:
+        """One eager call of shape (1, k) on a scratch state, counted as a
+        model call; on the card on a side stream, as PyTorch asks before a
+        capture (kernel libraries load and cuBLAS sets up its workspace
+        outside it).  Returns its logits."""
+        state = self._new_state()
+        toks = torch.zeros((1, k), dtype=torch.int32, device=self.device)
+        pos = torch.arange(k, dtype=torch.int32, device=self.device)
+        self._warm.add(k)
+        if not self._graphed:
+            return self._decode(state, toks, pos)[0]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            logits = self._decode(state, toks, pos)[0]
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return logits
+
+    def _capture(self, call: DecodeCall) -> None:
+        """Capture ``call``'s graph over its lane's state and static
+        inputs, in a memory pool of its own.  The wrappers count their
+        launches in Python as the capture runs them, but a capture launches
+        nothing: the count is taken off the launch counter and kept, and
+        each replay adds it back.  A failed capture raises, naming the lane
+        and the shape; nothing falls back to eager calls."""
+        from repro_torch import kernels as K
+        before = dict(K.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                logits, _ = self.api.decode_step(
+                    self.model, self._state[call.lane], call.tokens,
+                    call.positions)
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"capturing lane {call.lane}'s decode call of shape (1, "
+                f"{call.k}) failed: {err}") from err
+        finally:
+            launched = {n: K.LAUNCHES[n] - before[n] for n in before}
+            K.LAUNCHES.update(before)
+        call.graph, call.logits = graph, logits
+        call.launches = {n: c for n, c in launched.items() if c}
+
+    def prepare(self, lane: int, k: int) -> DecodeCall:
+        """Lane ``lane``'s call of shape (1, k), made ready on its first
+        use: its static inputs and, on the card, its graph, captured after
+        one eager call of the shape (:meth:`_warm_up`, once a shape).  The
+        serving loop calls this before a call's timed window opens."""
+        call = self._calls.get((lane, k))
+        if call is None:
+            call = DecodeCall(
+                lane, k,
+                torch.zeros((1, k), dtype=torch.int32, device=self.device),
+                torch.zeros((k,), dtype=torch.int32, device=self.device))
+            if self._graphed:
+                if k not in self._warm:
+                    self._warm_up(k)
+                self._capture(call)
+            self._calls[(lane, k)] = call
+        return call
+
+    def _run(self, call: DecodeCall, tokens, start: int) -> torch.Tensor:
+        """One model call: ``tokens`` (1, k) (a host array or a device
+        tensor) and the positions start..start + k - 1 written into the
+        call's static inputs, then its graph replayed (on the CPU: the
+        model called on them).  Returns the logits (1, k, V), on the card
+        the graph's static output, valid until this lane's next call of
+        this shape."""
+        from repro_torch import kernels as K
+        call.tokens.copy_(torch.as_tensor(tokens))
+        torch.arange(start, start + call.k, out=call.positions)
+        self.model_calls += 1
+        if call.graph is None:
+            call.logits, _ = self.api.decode_step(
+                self.model, self._state[call.lane], call.tokens,
+                call.positions)
+            return call.logits
+        try:
+            call.graph.replay()
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"replaying lane {call.lane}'s decode graph of shape (1, "
+                f"{call.k}) failed: {err}") from err
+        for name, n in call.launches.items():
+            K.LAUNCHES[name] += n
+        return call.logits
+
+    def model_call(self, lane: int, tokens, start: int) -> torch.Tensor:
+        """One untimed model call on lane ``lane``'s state (see
+        :meth:`_run`), its shape made ready first."""
+        return self._run(self.prepare(lane, tokens.shape[1]), tokens, start)
 
     @staticmethod
     def _sample(logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token (1, 1) int32 of the last position: one eager
+        argmax, as the reference jits its sampler apart from the decode
+        call; a graph of one kernel would save nothing."""
         return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-
-    def _positions(self, start: int, k: int):
-        if k == 1:
-            return start
-        return torch.arange(start, start + k, dtype=torch.int32,
-                            device=self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def warmup(self) -> None:
-        """One untimed call per steady-state shape, on a throwaway state,
-        and one sample — excluded from every reported timing."""
+        """Make the steady-state shapes ready outside every timed region,
+        (1, 1) and, with chunked prefill, (1, chunk) (the reference
+        compiles these two): one eager call of each shape on a scratch
+        state, then each lane's call of it (:meth:`prepare`: on the card
+        its graph captured), then one sample.  An encdec backend encodes
+        zero frames once, and their cross K/V become every lane's first
+        state."""
+        if self.cfg.family == "encdec":
+            enc_out = self._encode(None)
+            for state in self._state:
+                self._set_cross(state, enc_out)
         shapes = {1}
         if self.prefill_chunk > 1:
             shapes.add(self.prefill_chunk)
         logits = None
         for k in sorted(shapes):
-            state = self.fresh_state()
-            toks = torch.zeros((1, k), dtype=torch.int32, device=self.device)
-            logits, _ = self._decode(state, toks, self._positions(0, k))
+            logits = self._warm_up(k)
+            for lane in range(self.lanes):
+                self.prepare(lane, k)
         self._sample(logits)
         self._sync()
 
@@ -332,22 +512,20 @@ class TorchBackend:
                 continue
             lane, req = ev.lane, ev.request
             if ev.new_request:
-                self._state[lane] = self.fresh_state(
-                    self.embeds_fn(req) if self.cfg.family == "encdec"
-                    else None)
+                self.fresh_state(self.embeds_fn(req)
+                                 if self.cfg.family == "encdec" else None,
+                                 lane=lane)
                 self._pending_logits[lane] = None
                 self._prompt[lane] = prompt_tokens(req, self.cfg.vocab,
                                                    self.seed)
                 self.outputs.setdefault(req.rid, [])
             if ev.prefill_tokens:
                 a, k = ev.prefill_start, ev.prefill_tokens
-                toks = torch.as_tensor(self._prompt[lane][:, a:a + k],
-                                       device=self.device)
+                call = self.prepare(lane, k)    # a new shape: captured
                 fl, by = call_costs(self.cfg, k, self.cache_slots,
                                     self.weight_bytes, self.enc_len)
-                (logits, _), dw, dc = self._timed(
-                    self._decode, self._state[lane], toks,
-                    self._positions(a, k))
+                logits, dw, dc = self._timed(
+                    self._run, call, self._prompt[lane][:, a:a + k], a)
                 if a + k == req.prompt_len:
                     self._pending_logits[lane] = logits
                 self._write(tr, PREFILL, lane, dw, dc, fl, by)
@@ -358,10 +536,11 @@ class TorchBackend:
                                           self._pending_logits[lane])
                 self._write(tr, SAMPLE, lane, dw, dc, *sample_costs(self.cfg))
                 self.outputs[req.rid].append(int(tok[0, 0]))
+                call = self.prepare(lane, 1)
                 fl, by = call_costs(self.cfg, 1, self.cache_slots,
                                     self.weight_bytes, self.enc_len)
-                (logits, _), dw, dc = self._timed(
-                    self._decode, self._state[lane], tok, ev.decode_pos)
+                logits, dw, dc = self._timed(self._run, call, tok,
+                                             ev.decode_pos)
                 self._pending_logits[lane] = logits
                 self._write(tr, DECODE, lane, dw, dc, fl, by)
             if ev.kv_tokens:
@@ -372,8 +551,7 @@ class TorchBackend:
                 tr.metric(BYTES)[0, 0, lane, j] = \
                     ev.kv_tokens * self.kv_bytes_per_token
                 tr.metric(VMEM_PRESSURE)[0, 0, lane, j] = ev.occupancy
-            if ev.finished:
-                self._state[lane] = None
+            if ev.finished:     # the lane keeps its state's tensors
                 self._pending_logits[lane] = None
                 self._prompt[lane] = None
         return tr
