@@ -3790,6 +3790,24 @@ SHARDED_TOL = 1e-5
 # host's CPU, started first and run while the card works.
 DRYRUN_CELLS = (("mixtral-8x22b", "train_4k", True),
                 ("gemma-7b", "decode_32k", False))
+# Sequence parallelism's planning cost: the one-layer mixtral smoke
+# training cell (train_4k) on the (2, 16, 16) fake world, with and without
+# SP, each a cold child process; SP may take at most SP_PLAN_RATIO times
+# the time without it.
+SP_PLAN_RATIO = 2.0
+SP_PLANNING = r"""
+import json, sys, time
+from repro_torch.configs import get_arch
+from repro_torch.launch import dryrun
+sp = sys.argv[1] == "1"
+cfg = get_arch("mixtral-8x22b").smoke.with_(n_layers=1)
+t0 = time.perf_counter()
+r = dryrun.run_cell("mixtral-8x22b", "train_4k", multi_pod=True,
+                    probes=False, cfg_override=cfg, sp=sp)
+print(json.dumps({"sp": sp, "count_s": r["count_s"],
+                  "cell_s": time.perf_counter() - t0,
+                  "memory": r["memory"]}))
+"""
 
 
 def compression_child(rank: int, smoke: bool = False) -> dict:
@@ -3879,7 +3897,12 @@ def multi_device_phase(device, argv=SHARDED_ARGV, cells=DRYRUN_CELLS,
     within ``SHARDED_TOL`` relative, and RMSNorm and attention launched
     as many times each step, through the CUDA kernels on each rank's
     shards.  Each cell must be ok, with its per-rank bytes and the three
-    roofline terms logged."""
+    roofline terms logged; a training cell runs under sequence
+    parallelism, and the one-layer mixtral smoke cell plans with SP in at
+    most ``SP_PLAN_RATIO`` times its time without (two cold children,
+    ``SP_PLANNING``).  The triage runs twice, its analysis on the card's
+    kernel lane and on the exact host lane, and the two verdicts must be
+    equal."""
     from repro_torch.launch.mesh import run_ranks
     on_card = _on_card(device)
     t0 = time.perf_counter()
@@ -3898,10 +3921,16 @@ def multi_device_phase(device, argv=SHARDED_ARGV, cells=DRYRUN_CELLS,
                 cmd + (["--multi-pod"] if multi else []), cwd=ROOT,
                 env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
-        triage = subprocess.Popen(
+        triage = {lane: subprocess.Popen(
             [sys.executable, "-m", "repro_torch.examples.dryrun_triage",
-             "--device", str(device)], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             *flags], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for lane, flags in (
+                ("kernel", ["--device", str(device)]),
+                ("exact", ["--distance-backend", "numpy"]))}
+        planning = {sp: subprocess.Popen(
+            [sys.executable, "-c", SP_PLANNING, str(int(sp))], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for sp in (True, False)}
         compression = {}
 
         def compress() -> None:
@@ -3940,7 +3969,24 @@ def multi_device_phase(device, argv=SHARDED_ARGV, cells=DRYRUN_CELLS,
             out["sharded_s"] = time.perf_counter() - t1
         finally:
             worker.join()
-            t_out, t_err = triage.communicate(timeout=600)
+            t_out = {}
+            for lane, p in triage.items():
+                stdout, stderr = p.communicate(timeout=600)
+                if p.returncode != 0 or "CCR:" not in stdout:
+                    raise AssertionError(
+                        f"dryrun_triage ({lane} lane) exited "
+                        f"{p.returncode}, found no CCR:\n{stdout[-2000:]}"
+                        f"\n{stderr[-3000:]}")
+                t_out[lane] = [l for l in stdout.splitlines()
+                               if l.startswith(("CCR", "CCCR", "root-cause"))]
+            for sp, p in planning.items():
+                stdout, stderr = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"SP planning child (sp={sp}) "
+                                         f"exited {p.returncode}:\n"
+                                         f"{stderr[-3000:]}")
+                out.setdefault("sp_planning", {})[
+                    "sp" if sp else "no_sp"] = last_json(stdout)
             for arch, shape, path, p in procs:
                 try:
                     stdout, stderr = p.communicate(timeout=600)
@@ -3960,12 +4006,16 @@ def multi_device_phase(device, argv=SHARDED_ARGV, cells=DRYRUN_CELLS,
         raise compression["error"]
     out["compression"] = compression["result"]
     out["compression_s"] = compression["s"]
-    if triage.returncode != 0 or "CCR:" not in t_out:
-        raise AssertionError(f"dryrun_triage exited {triage.returncode}, "
-                             f"found no CCR:\n{t_out[-2000:]}\n"
-                             f"{t_err[-3000:]}")
-    out["triage"] = [l for l in t_out.splitlines()
-                     if l.startswith(("CCR", "root-cause"))]
+    if t_out["kernel"] != t_out["exact"]:
+        raise AssertionError(f"the triage's kernel-lane verdict "
+                             f"{t_out['kernel']} differs from the exact "
+                             f"lane's {t_out['exact']}")
+    out["triage"] = t_out["kernel"]
+    plan = out["sp_planning"]
+    if plan["sp"]["count_s"] > SP_PLAN_RATIO * plan["no_sp"]["count_s"]:
+        raise AssertionError(f"the SP cell planned in {plan['sp']} s, over "
+                             f"{SP_PLAN_RATIO} x the {plan['no_sp']} s "
+                             f"without SP")
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -3991,14 +4041,24 @@ def log_multi_device(res: dict, card_bytes: float = 80e9) -> None:
         mem_s = ", ".join(f"{k} {v:.4g} ({v / card_bytes:.3f} of 80 GB)"
                           for k, v in mem.items())
         log(f"[32] dryrun {name} on {r['mesh']} ({r['chips']} fake ranks, "
-            f"meta): per rank {mem_s}; FLOPs {r['cost']['flops']:.4g}, "
+            f"meta, CPU host; sequence parallel: "
+            f"{r['shape'].startswith('train')}): counted in "
+            f"{r['count_s']:.1f} s; per rank {mem_s}; FLOPs "
+            f"{r['cost']['flops']:.4g}, "
             f"bytes {r['cost']['bytes']:.4g}, collectives "
             f"{r['cost']['collective_bytes']:.4g}; H100 terms compute "
             f"{t['compute_s']:.4g} s, memory {t['memory_s']:.4g} s, "
             f"collective {t['collective_s']:.4g} s (NVLink 450 GB/s, a "
             f"lower bound across nodes): {t['dominant']}; "
             f"{r['wall_s']:.1f} s")
-    log(f"[32] examples.dryrun_triage: {res['triage']}")
+    sp, no_sp = res["sp_planning"]["sp"], res["sp_planning"]["no_sp"]
+    log(f"[32] one-layer mixtral smoke train_4k on (2, 16, 16), cold "
+        f"children on the CPU host: counted in {sp['count_s']:.2f} s with "
+        f"SP, {no_sp['count_s']:.2f} s without (at most {SP_PLAN_RATIO} "
+        f"x); temp {sp['memory']['temp_size_in_bytes']:.4g} against "
+        f"{no_sp['memory']['temp_size_in_bytes']:.4g} bytes a rank")
+    log(f"[32] examples.dryrun_triage, kernel lane on the card = exact "
+        f"lane: {res['triage']}")
     log(f"[32] phase {res['phase_s']:.1f} s")
 
 

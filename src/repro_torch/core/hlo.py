@@ -23,6 +23,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
+from torch.utils.weak import WeakIdKeyDictionary
 
 COLLECTIVE_OPS = (
     "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -182,25 +183,98 @@ def is_dtensor_type(t: type) -> bool:
 # slots: ``models/layers.py::_write_cache``).
 _INDEXED_WRITES = (torch.ops.aten.index_copy_.default,)
 
+# Pointwise ops XLA's cost analysis counts as transcendentals, not FLOPs
+# (``HloCostAnalysis::HandleElementwiseOp``: exp, log, logistic, power,
+# sqrt, rsqrt, tanh, the trigonometric functions, erf).
+_TRANSCENDENTAL = frozenset(
+    getattr(torch.ops.aten, name) for name in (
+        "exp", "exp2", "expm1", "log", "log2", "log10", "log1p", "sigmoid",
+        "pow", "sqrt", "rsqrt", "tanh", "sin", "cos", "tan", "atan2",
+        "erf"))
+
+
+def _numel(tree) -> int:
+    return sum(t.numel() for t in _tensors(tree))
+
+
+# Pointwise ops XLA expands into several (its CPU backend's counts for
+# jax.nn's twins: logistic as 1 / (1 + exp(-x)), silu as x · logistic,
+# the tanh GELU, softplus), and the softmaxes (a max and a sum reduced, a
+# subtraction and a division an element): FLOPs an element.
+_EXPANDED = {
+    torch.ops.aten.sigmoid: 3, torch.ops.aten.silu: 4,
+    torch.ops.aten.gelu: 8, torch.ops.aten.softplus: 6,
+    torch.ops.aten._softmax: 4, torch.ops.aten._log_softmax: 4,
+}
+# Ops XLA does not repeat in each reader of their output
+# (``InstructionFusion::IsExpensive``): the transcendentals, the ops it
+# expands into them, division and powers.
+_EXPENSIVE = _TRANSCENDENTAL | frozenset(_EXPANDED) | frozenset(
+    (torch.ops.aten.div, torch.ops.aten.reciprocal))
+# Writes through a boolean mask (``t[mask] = v``: DTensor's masked
+# embedding rows), a select over every element in XLA.
+_MASKED_WRITES = (torch.ops.aten.index_put_.default,
+                  torch.ops.aten.index_put.default)
+# Collectives that sum: XLA counts one FLOP per result element
+# (``HloCostAnalysis::HandleAllReduce``).
+_SUMMING_COLLECTIVES = ("all-reduce", "reduce-scatter")
+
+
+def elementwise_flops(func, args, kwargs, out) -> int:
+    """FLOPs of an aten op outside ``flop_registry`` as XLA's cost analysis
+    counts its HLO: one per output element of a pointwise op (none for a
+    transcendental, which XLA counts apart; several for the ops XLA
+    expands, ``_EXPANDED``, and an integer power), a reduction's input
+    elements less its output elements (one application of the reducer
+    each), one
+    per element of a masked write (a select) and one per result element
+    of a summing collective.  Other data movement (copies, gathers,
+    concatenations, fills) counts none."""
+    packet = func._overloadpacket
+    if packet in _EXPANDED:
+        return _EXPANDED[packet] * _numel(out)
+    if packet is torch.ops.aten.pow and isinstance(args[1], (int, float)) \
+            and float(args[1]).is_integer() and args[1] >= 2:
+        # an integer power: the multiplications XLA lowers it to
+        return (int(args[1]) - 1) * _numel(out)
+    if torch.Tag.pointwise in func.tags:
+        return 0 if packet in _TRANSCENDENTAL else _numel(out)
+    if torch.Tag.reduction in func.tags:
+        return max(_numel(args[:1]) - _numel(out), 0)
+    if func in _MASKED_WRITES and any(
+            isinstance(i, torch.Tensor) and i.dtype == torch.bool
+            for i in args[1]):
+        return _numel(args[:1])
+    if collective_op(func) in _SUMMING_COLLECTIVES:
+        return _numel(out)
+    return 0
+
 
 class _CostMode(TorchDispatchMode):
     """Counts what each aten op on plain tensors does: its FLOPs (the
-    formulas of ``torch.utils.flop_counter``, matrix products and
-    convolutions only), the bytes of every tensor it reads and writes
-    (view ops, which move no data, skipped; an indexed write in place,
-    its index and values read and written) and, for a collective, its
-    result's bytes under the reference's op name.  An op on DTensors is
-    handed on (``NotImplemented``): DTensor runs it as ops on the local
+    formulas of ``torch.utils.flop_counter`` for matrix products and
+    convolutions; with ``xla``, :func:`elementwise_flops` for the rest),
+    the bytes of every tensor it reads and writes (view ops, which move
+    no data, skipped; an indexed write in place, its index and values
+    read and written; with ``fused``, see :func:`costs_of`) and, for a
+    collective, its result's bytes under the reference's op name.  An op
+    on DTensors is handed on (``NotImplemented``): DTensor runs it as ops on the local
     shards and collectives, which come back here, so every count is one
     rank's.  Ops that decompose are counted as their parts, as
     ``FlopCounterMode`` counts them."""
 
-    def __init__(self, device_type: Optional[str] = None):
+    def __init__(self, device_type: Optional[str] = None,
+                 fused: bool = False, xla: bool = False):
         super().__init__()
         self.device_type = device_type
+        self.fused = fused
+        self.xla = xla
         self.flops = 0
         self.bytes = 0
         self.collectives = CollectiveStats({}, {})
+        # fused mode: each output of a fused op -> [bytes, readers, fused
+        # readers, expensive] (its views share the record)
+        self._fusible = WeakIdKeyDictionary()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -221,13 +295,21 @@ class _CostMode(TorchDispatchMode):
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        elif self.xla:
+            self.flops += elementwise_flops(func, args, kwargs, out)
         op = collective_op(func)
         if op:
             c = self.collectives
             c.bytes_by_op[op] = c.bytes_by_op.get(op, 0) + sum(
                 t.numel() * t.element_size() for t in _tensors(out))
             c.count_by_op[op] = c.count_by_op.get(op, 0) + 1
-        if func in _INDEXED_WRITES:
+        root = bool(op) or packet in flop_registry \
+            or torch.Tag.reduction in func.tags
+        if self.fused:
+            self._fuse(func, args, kwargs, out, root)
+        if self.fused and not root:
+            pass    # inside a fusion: no traffic of its own
+        elif func in _INDEXED_WRITES:
             # self, dim, index, values: the index and the values read, as
             # many bytes written; the rest of the buffer is not touched
             # (XLA counts its in-place dynamic-update-slice so)
@@ -238,21 +320,78 @@ class _CostMode(TorchDispatchMode):
             self.bytes += sum(t.numel() * t.element_size() for t in tensors)
         return out
 
+    def _fuse(self, func, args, kwargs, out, root: bool) -> None:
+        """Fused mode: an op outside a fusion's roots (products,
+        reductions, collectives) fuses into its readers and moves nothing
+        of its own.  Where two or more ops read its output (or views of
+        it), XLA repeats a cheap chain in each reader, but materialises
+        one that holds an expensive op (a transcendental, a division, a
+        power: ``InstructionFusion::IsExpensive``): written once and read
+        by each fused reader (a root's reads are its own)."""
+        if func.is_view:
+            base = next((self._fusible[t] for t in _tensors(args)
+                         if t in self._fusible), None)
+            if base is not None:
+                for t in _tensors(out):
+                    self._fusible[t] = base
+            return
+        read = {id(r): r for r in (self._fusible.get(t)
+                                   for t in _tensors((args, kwargs)))
+                if r is not None}
+        for rec in read.values():
+            rec[1] += 1
+            rec[2] += not root
+            if not rec[3]:
+                continue
+            if rec[1] == 2:
+                self.bytes += rec[0] * (1 + rec[2])
+            elif rec[1] > 2 and not root:
+                self.bytes += rec[0]
+        if not root and func.namespace != "_c10d_functional":
+            for t in _tensors(out):
+                nbytes = t.numel() * t.element_size()
+                # a broadcast operand (a scalar) is its own fusion
+                expensive = func._overloadpacket in _EXPENSIVE or any(
+                    r[3] and r[0] >= nbytes for r in read.values())
+                self._fusible[t] = [nbytes, 0, 0, expensive]
+
+
+def _local_bytes(tree) -> int:
+    """Bytes of the tensors of ``tree``, a DTensor's local shard."""
+    return sum(t.to_local().nbytes if is_dtensor_type(type(t)) else t.nbytes
+               for t in _tensors(tree))
+
 
 def costs_of(fn: Callable[..., Any], *args,
-             device_type: Optional[str] = None
+             device_type: Optional[str] = None, xla: bool = False,
+             fused: bool = False, unfused: bool = False
              ) -> Tuple[float, float, CollectiveStats]:
     """``(flops, bytes, collectives)`` of one call ``fn(*args)``, which
     runs once; see :func:`cost_of` and :func:`collectives_of`.  With
     ``device_type`` only the ops that touch a tensor of that type count:
     the dry-run's model lives on ``meta``, and DTensor's own index
     bookkeeping, which it runs on host tensors the first time it meets a
-    layout and then caches, is not the model's work."""
+    layout and then caches, is not the model's work.  ``xla`` counts the
+    elementwise FLOPs too, as XLA's cost analysis does
+    (:func:`elementwise_flops`): the convention of the reference's
+    compiled-module counts, which the dry-run, its roofline and the
+    static analyzer share.  ``fused`` counts
+    the bytes as XLA counts a fused module's: the call's arguments read
+    and its result written once, the operands and results of the
+    products, of the reductions (XLA's reduce fusions read their input
+    once, its elementwise producers fused in), of the collectives and of
+    the kernels; every other op is taken as fused into its neighbours and
+    moves nothing of its own.  With ``unfused`` a kernel whose function
+    has an unfused form (attention) counts that
+    (:func:`repro_torch.kernels.counting_costs`)."""
     from repro_torch.kernels import counting_costs
-    with counting_costs() as kernels, _CostMode(device_type) as mode:
-        fn(*args)
-    return (float(mode.flops) + kernels[0], float(mode.bytes) + kernels[1],
-            mode.collectives)
+    with counting_costs(unfused) as kernels, \
+            _CostMode(device_type, fused, xla) as mode:
+        out = fn(*args)
+    nbytes = float(mode.bytes) + kernels[1]
+    if fused:
+        nbytes += _local_bytes((args, out))
+    return float(mode.flops) + kernels[0], nbytes, mode.collectives
 
 
 def collectives_of(fn: Callable[..., Any], *args) -> CollectiveStats:
@@ -270,12 +409,14 @@ def cost_of(fn: Callable[..., Any], *args) -> Tuple[float, float]:
 
     FLOPs are ``torch.utils.flop_counter``'s formulas: matrix products and
     convolutions only, so an elementwise ``tanh`` counts 0 where XLA's
-    ``cost_analysis`` counts it.  Bytes sum each aten op's
+    ``cost_analysis`` counts it (``costs_of(xla=True)`` counts those, as
+    the dry-run does).  Bytes sum each aten op's
     tensor inputs and outputs, which counts *unfused* traffic — every
     intermediate written and read again — where XLA's ``bytes accessed``
-    counts the fused module's.  On DTensors both are one rank's, counted
-    on the local shards (:class:`_CostMode`), as the reference's costs of
-    a partitioned module are per chip.  A loop whose trip count is data
+    counts the fused module's (``costs_of(fused=True)`` counts that).  On
+    DTensors both are one rank's, counted on the local shards
+    (:class:`_CostMode`), as the reference's costs of a partitioned
+    module are per chip.  A loop whose trip count is data
     (``scenarios.faults.iterated_work``, the trainer's expert probes) runs
     its body once under the count (``kernels.loop_trips``), as XLA counts
     the body of a ``fori_loop`` with a traced trip count once, so a

@@ -9,14 +9,17 @@ that its main path went through the kernels.
 it (``core/hlo.py::cost_of`` opens one): each wrapper decorated with
 :func:`counted` adds its kernel's analytic FLOPs and bytes, the counts
 ``chip_smoke.py``'s bounds use, and runs outside the active PyTorch
-dispatch modes.  The aten-level counters of ``cost_of`` cannot see a
-ctypes launch on the card, and on the CPU they must not count the plain
+dispatch modes.  A block may count a wrapper's function as computed
+unfused instead, where it has such a form (``unfused``: the attention of
+a configuration that does not declare the flash path, which the
+reference compiles unfused, in the static analysis).  The aten-level counters of ``cost_of``
+cannot see a ctypes launch on the card, and on the CPU they must not count the plain
 version as well, so a count is the same on both devices.  Inside one, a
 loop whose trip count is data runs its body once (:func:`loop_trips`).
 """
 import contextlib
 import functools
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 LAUNCHES: Dict[str, int] = {"multi_seed_rows": 0, "rmsnorm": 0,
                             "flash_attention": 0, "wkv6": 0}
@@ -28,19 +31,25 @@ def reset_launches() -> None:
     SEED_COUNTS.clear()
 
 
-# The [flops, bytes] of each active counting_costs() block.
+# The [flops, bytes] of each active counting_costs() block, and whether
+# it counts unfused work.
 _COSTS: List[List[float]] = []
+_UNFUSED: List[bool] = []
 
 
 @contextlib.contextmanager
-def counting_costs() -> Iterator[List[float]]:
+def counting_costs(unfused: bool = False) -> Iterator[List[float]]:
     """Count ``[flops, bytes]`` of the counted wrapper calls made inside
-    the block (nested blocks each count their own calls)."""
+    the block (nested blocks each count their own calls).  With
+    ``unfused`` a wrapper whose function has an unfused form counts that
+    in place of its kernel's work."""
     counts = [0.0, 0.0]
     _COSTS.append(counts)
+    _UNFUSED.append(unfused)
     try:
         yield counts
     finally:
+        del _UNFUSED[_COSTS.index(counts)]
         _COSTS.remove(counts)
 
 
@@ -52,10 +61,13 @@ def loop_trips(n: int) -> int:
     return 1 if _COSTS else n
 
 
-def counted(work: Callable[..., Tuple[float, float]]):
+def counted(work: Callable[..., Tuple[float, float]],
+            unfused: Optional[Callable[..., Tuple[float, float]]] = None):
     """Decorate a kernel wrapper: while a cost count is active, a call adds
     ``work(*args, **kw)`` (its FLOPs and bytes) to every active count and
-    runs with PyTorch's dispatch modes (the aten-level counters) off."""
+    runs with PyTorch's dispatch modes (the aten-level counters) off.
+    While an active count counts unfused work, the call adds
+    ``unfused(*args, **kw)`` instead, where given."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kw):
@@ -63,7 +75,10 @@ def counted(work: Callable[..., Tuple[float, float]]):
                 return fn(*args, **kw)
             from torch.utils._python_dispatch import _disable_current_modes
             with _disable_current_modes():
-                flops, nbytes = work(*args, **kw)
+                if unfused is not None and any(_UNFUSED):
+                    flops, nbytes = unfused(*args, **kw)
+                else:
+                    flops, nbytes = work(*args, **kw)
                 for counts in _COSTS:
                     counts[0] += flops
                     counts[1] += nbytes

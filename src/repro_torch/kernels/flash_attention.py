@@ -234,7 +234,30 @@ def consecutive_live(Q: int, K: int, causal: bool, window: Optional[int]
     return int(n.sum()), int(hi.max() - lo.min() + 1)
 
 
-@counted(_work)
+def unfused_attention_work(B: int, Q: int, H: int, KV: int, dh: int,
+                           K: int, itemsize: int) -> Tuple[float, float]:
+    """``(flops, bytes)`` of the attention computed unfused, as XLA
+    compiles the reference's jnp attention: every (query, key) pair of
+    every head scored and weighted, masked pairs too (4·dh FLOPs), six
+    FLOPs a score for the scale, the mask and the softmax, and the
+    float32 scores materialised between the two products, written four
+    times (the product, the masked scores, the exponentials, the
+    probabilities) and read six (by the mask, the max, the exponentials,
+    the sum, the division and the second product); q, k and v read and
+    the output written once."""
+    pairs = B * H * Q * K
+    nbytes = itemsize * B * (2 * Q * H * dh + 2 * K * KV * dh) \
+        + 10 * 4 * pairs
+    return 4.0 * dh * pairs + 6.0 * pairs, float(nbytes)
+
+
+def _unfused_work(q, k, v, q_pos, k_pos, **_) -> Tuple[float, float]:
+    B, Q, H, dh = q.shape
+    return unfused_attention_work(B, Q, H, k.shape[2], dh, k.shape[1],
+                                  q.element_size())
+
+
+@counted(_work, unfused=_unfused_work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,

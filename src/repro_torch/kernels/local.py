@@ -15,13 +15,21 @@ Nothing is gathered but what the kernel needs whole:
   ``act_heads`` -> model); k and v take the same batch shards and shard
   their kv heads as q's heads are, which keeps each local query head on
   its kv head where the kv head count divides by those mesh dims.  Where
-  it does not (an MQA cache on a 16-way model axis), q's heads are
-  replicated first.  A sequence shard is gathered: the kernel takes all
-  keys.
+  it does not (GQA or an MQA cache on a wider model axis), k and v stay
+  whole on those mesh dims and each rank takes the kv heads its own query
+  heads read; only where a rank's query heads straddle kv groups
+  unevenly are q's heads replicated first.  A sequence shard is
+  gathered: the kernel takes all keys.
 * WKV-6 keeps r's batch and head shards, and shards u and the state the
   same way.
 
 A Partial placement (a sum still pending) is reduced before a call.
+
+Two products take the same care: :func:`rows` runs a product on each
+rank's rows of an activation with its weights gathered whole (sequence
+parallelism's choice where the weights move fewer bytes than the
+sequence), and :func:`kv_project` projects only the kv heads a rank's
+query heads read.
 """
 from __future__ import annotations
 
@@ -93,7 +101,7 @@ def split_dim(t, dim: int, size: int):
     return wrap(loc, t.device_mesh, _shift_dims(t.placements, dim, 1))
 
 
-def _replicated_local(t, like):
+def replicated_local(t, like):
     """``t`` whole on every rank, as a plain tensor.  Its gradient is a
     partial sum over the mesh dims ``like`` is sharded on (each rank's
     local call saw only its own shard of ``like``), replicated on the
@@ -126,26 +134,103 @@ def placed_as(t, like):
     return to_placements(t, like.placements)
 
 
+def rows(fn: Callable, x, *ws):
+    """``fn(x_local, *ws_whole)`` on each rank's rows of ``x`` (a DTensor
+    whose last dim is whole: every pending sum reduced first) with every
+    DTensor of ``ws`` gathered whole, the result placed as ``x``: a
+    product that keeps the activation's shards and gathers its weights.
+    Each weight's gradient is a partial sum over the mesh dims ``x`` is
+    sharded on."""
+    x = to_placements(x, _placements(x, range(x.dim() - 1)))
+    out = fn(x.to_local(), *(replicated_local(w, x) for w in ws))
+    return wrap(out, x.device_mesh, x.placements)
+
+
+def shard_index(t, dim: int) -> int:
+    """This rank's index among the shards of ``t``'s ``dim`` (mesh dims
+    in mesh order, the first outermost, as DTensor splits a dim)."""
+    from torch.distributed.tensor import Shard
+    mesh, coord, idx = t.device_mesh, t.device_mesh.get_coordinate(), 0
+    for i, p in enumerate(t.placements):
+        if p == Shard(dim):
+            idx = idx * mesh.size(i) + coord[i]
+    return idx
+
+
+def kv_project(x, w, wq):
+    """The kv projection x (B, S, d) @ w (d, KV, dh) of an attention whose
+    query heads are cut (``wq``'s heads dim) and whose kv heads are whole:
+    each rank projects, from its rows of x and w gathered whole, only the
+    kv heads its own query heads read (GQA keeps query head h on kv head
+    h // (H / KV)), as Megatron repeats the kv heads over its tensor
+    ranks.  Returns a DTensor (B, S, n · kv, dh): the kv heads of each of
+    the n query-head shards side by side, cut as the query heads.  None
+    where that does not apply: heads not cut, w's heads cut, x cut on a
+    mesh dim of the heads, or a shard's query heads straddling kv groups
+    unevenly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    n, H, (d, KV, dh) = shard_count(wq, 1), wq.shape[1], w.shape
+    heads, group = H // n, H // KV
+    x = to_placements(x, _placements(x, range(x.dim() - 1)))
+    cut = [p == Shard(1) for p in wq.placements]
+    if n == 1 or shard_count(w, 1) > 1 or (heads % group and group % heads) \
+            or any(c and isinstance(p, Shard)
+                   for c, p in zip(cut, x.placements)):
+        return None
+    kv = max(heads // group, 1)
+    first = shard_index(wq, 1) * heads // group
+    whole = to_placements(w, [Replicate()] * w.device_mesh.ndim)
+    mine = whole.to_local(grad_placements=[
+        Partial() if c or isinstance(p, Shard) else Replicate()
+        for c, p in zip(cut, x.placements)])[:, first:first + kv]
+    # each rank's product reads only its kv heads of w: x's gradient is a
+    # partial sum over the mesh dims of the heads
+    rows = x.to_local(grad_placements=[Partial() if c else p for c, p
+                                       in zip(cut, x.placements)])
+    out = (rows @ mine.reshape(d, kv * dh)).view(*rows.shape[:-1], kv, dh)
+    return wrap(out, x.device_mesh, [Shard(x.dim() - 1) if c else p
+                                     for c, p in zip(cut, x.placements)])
+
+
 def rmsnorm(x, w, eps: float, local: Callable):
     """RMSNorm of a DTensor's rows: ``local(x_local, w_full, eps)``."""
     x = to_placements(x, _placements(x, range(x.dim() - 1)))
-    y = local(x.to_local(), _replicated_local(w, x), eps)
+    y = local(x.to_local(), replicated_local(w, x), eps)
     return wrap(y, x.device_mesh, x.placements)
 
 
 def attention(q, k, v, q_pos, k_pos, local: Callable):
     """Attention of DTensors q (B, Q, H, dh) and k, v (B, K, KV, dh):
     ``local(q, k, v, q_pos, k_pos)`` on each rank's batch and heads."""
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = q.device_mesh
     pq = _placements(q, (0, 2))
-    if k.shape[2] % shard_count(q, 2):
-        pq = [Replicate() if p == Shard(2) else p for p in pq]
     q = to_placements(q, pq)
-    k, v = (to_placements(t, pq) if is_dtensor(t) else
+    H, KV = q.shape[2], k.shape[2]
+    n = shard_count(q, 2)
+    group, heads = H // KV, H // n
+    pk = pq
+    if KV % n:
+        # k and v whole on the mesh dims of q's heads; each rank reads the
+        # kv heads of its own query heads (GQA keeps query head h on kv
+        # head h // group)
+        pk = [Replicate() if p == Shard(2) else p for p in pq]
+        if heads % group and group % heads:
+            pq = pk
+            q = to_placements(q, pq)
+    k, v = (to_placements(t, pk) if is_dtensor(t) else
             wrap(t, mesh, [Replicate()] * mesh.ndim).redistribute(
-                mesh, pq) for t in (k, v))
-    out = local(q.to_local(), k.to_local(), v.to_local(),
+                mesh, pk) for t in (k, v))
+    if pk is not pq:
+        first = shard_index(q, 2) * heads // group
+        kv_heads = max(heads // group, 1)
+        grads = [Partial() if p == Shard(2) else p for p in pq]
+        k, v = (t.to_local(grad_placements=grads)[:, :, first:first
+                                                  + kv_heads]
+                for t in (k, v))
+    else:
+        k, v = k.to_local(), v.to_local()
+    out = local(q.to_local(), k, v,
                 _local(to_placements(q_pos, [Replicate()] * mesh.ndim)
                        if is_dtensor(q_pos) else q_pos),
                 _local(to_placements(k_pos, [Replicate()] * mesh.ndim)

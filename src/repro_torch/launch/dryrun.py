@@ -123,15 +123,16 @@ def _cell(cfg, shape, mesh):
     return decode_step, (p, st, tok, ins["pos"]), None
 
 
-def _run(cfg, shape, mesh, *, seq_sharded=False, memory: bool = False):
+def _run(cfg, shape, mesh, *, seq_sharded=False, sp: bool = False,
+         memory: bool = False):
     """Run one cell, counted: ``(cost, memory dict or None, seconds)``."""
-    act = rules_for(cfg, param=False, seq_sharded=seq_sharded)
+    act = rules_for(cfg, param=False, seq_sharded=seq_sharded, sp=sp)
     t0 = time.perf_counter()
     with activation_sharding(mesh, act):
         fn, args, forward = _cell(cfg, shape, mesh)
         out = []
         flops, nbytes, coll = costs_of(lambda: out.append(fn(*args)),
-                                       device_type="meta")
+                                       device_type="meta", xla=True)
         mem = None
         if memory:
             temp = rl.kept_bytes(forward)[1] if forward else None
@@ -181,23 +182,24 @@ def _depth_units(cfg) -> float:
 
 
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
-             probes: bool = True, cfg_override=None, hw=None, mesh=None
-             ) -> Dict[str, Any]:
+             probes: bool = True, cfg_override=None, hw=None, mesh=None,
+             sp: bool = True) -> Dict[str, Any]:
     """One cell's JSON record (the reference's keys; ``count_s`` is the
     production pass's seconds, in place of XLA's lower and compile
     times).  Without ``mesh`` the production mesh, on a fake world of its
     size started here when no process group is live.
 
-    The port's cells run without sequence parallelism (SP), where the
-    reference's training cells have it: with a batch cut over (pod, data)
-    and the sequence over model, the backward's products take activations
-    DTensor holds as strided shards.  DTensor (PyTorch 2.13) plans each
-    such product by a graph search that took 15 to 60 s a product on a
-    (2, 16, 16) mesh (a one-layer mixtral smoke cell: 252 s with SP, 16 s
-    without, on a CPU host), and PyTorch 2.11 refuses them.  So the
-    port's training cells keep the residual stream whole along the
-    sequence, and their temp bytes are those of the reference's rules
-    without SP."""
+    ``sp``: sequence parallelism for a training cell, as the reference
+    (a prefill or decode cell runs without it).  The residual stream then
+    lives cut along the sequence over ``model`` between the blocks, and
+    the blocks move it across their two seams explicitly
+    (``sharding.gather_seq`` after a norm, before the first product;
+    ``sharding.scatter_seq`` at the residual add), so no product is handed
+    an activation cut over (pod, data) on batch and over model on
+    sequence: DTensor would hold that as strided shards, which PyTorch
+    2.13 plans by a slow graph search and 2.11 refuses.  The loss runs on
+    each rank's sequence shard (``models.transformer.
+    chunked_ce_from_hidden``)."""
     hw = hw or H100_SXM
     cfg = cfg_override or get_arch(arch_id).full
     shape = SHAPES[shape_name]
@@ -214,8 +216,9 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
         n_active -= int(cfg.n_layers * (mo.n_experts - mo.top_k)
                         * 3 * cfg.d_model * mo.d_ff)
     model_flops = rl.model_flops_for(cfg, shape, n_total, n_active)
+    use_sp = sp and shape.kind == "train"
     cost, mem, count_s = _run(cfg, shape, mesh, seq_sharded=seq_sharded,
-                              memory=True)
+                              sp=use_sp, memory=True)
     chips = int(mesh.size())
     result: Dict[str, Any] = {
         "arch": arch_id, "shape": shape_name,
@@ -226,7 +229,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     }
     if probes:
         costs = [_run(_probe_cfg(cfg, d), shape, mesh,
-                      seq_sharded=seq_sharded)[0]
+                      seq_sharded=seq_sharded, sp=use_sp)[0]
                  for d in (1, 2)]
         ext = _extrapolate(costs[0], costs[1], _depth_units(cfg))
         result["cost"] = ext

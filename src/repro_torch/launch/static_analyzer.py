@@ -4,17 +4,22 @@ applied to the *phases* of a training step.
 
 Each code region (embed / attention sublayer / mlp-or-moe sublayer /
 head+loss / optimizer) runs once, standalone, on ``meta`` DTensors under
-the mesh and the reference's shardings (its activation rules without
-sequence parallelism, as the port's dry-run: with the batch and the
-sequence both cut, DTensor plans the products slowly in PyTorch 2.13
-and refuses to flatten them in 2.11); its per-rank FLOPs, bytes and
+the mesh and the reference's shardings, with its activation rules under
+sequence parallelism as the reference's; its per-rank FLOPs, bytes and
 collective bytes (``core.hlo.costs_of`` on the local shards) become the
 region's metrics, scaled as the reference scales them (each layer region
 by depth x ``TRAIN_MULTIPLIER``, embed and head by 3 for forward and
-backward), with estimated time = max(three roofline terms on the H100)
-standing in for the clock.  The k-means severity bands and the rough-set
-root causes of the port's :class:`~repro_torch.core.AutoAnalyzer` then
-point at what to optimize.
+backward), with estimated time = max(three roofline terms, on the H100
+by default) standing in for the clock.  The counts follow the reference's
+compiled cost analysis: elementwise FLOPs as XLA counts them, bytes as a
+fused module moves them (``costs_of(xla=True, fused=True)``), and, for a
+configuration that does not declare the flash path (``use_flash``: every
+shipped config, whose reference attention XLA compiles unfused), the
+attention as the unfused attention's work
+(``kernels.flash_attention.unfused_attention_work``) in place of the
+flash kernel's.  The k-means severity bands and the rough-set root causes
+of the port's :class:`~repro_torch.core.AutoAnalyzer` then point at what
+to optimize.
 """
 from __future__ import annotations
 
@@ -37,15 +42,16 @@ from repro_torch.models.layers import (attention, embed, mla_angles,
 from repro_torch.models.transformer import chunked_ce_from_hidden
 from repro_torch.optim import AdamWConfig, apply_updates
 from repro_torch.sharding import (activation_sharding, distribute,
-                                  rules_for, sharding_for)
+                                  rules_for, scatter_seq, sharding_for)
 
 # backward pass ~ 2x forward FLOPs; +1x recompute under remat "nothing"
 TRAIN_MULTIPLIER = 4.0
 
 
-def _region_cost(fn, args, mesh, act_rules) -> Dict[str, float]:
+def _region_cost(fn, args, mesh, act_rules, unfused) -> Dict[str, float]:
     with activation_sharding(mesh, act_rules):
-        flops, nbytes, coll = costs_of(fn, *args, device_type="meta")
+        flops, nbytes, coll = costs_of(fn, *args, device_type="meta",
+                                       xla=True, fused=True, unfused=unfused)
     return {"flops": flops, "bytes": nbytes,
             "coll": float(coll.total_bytes)}
 
@@ -66,15 +72,19 @@ def _layer(params: Dict[str, torch.Tensor], prefix: str):
 
 def analyze_train_cell(cfg: ModelConfig, shape: InputShape, mesh,
                        hw: HardwareSpec = H100_SXM,
-                       device: Union[None, str, torch.device] = None
+                       device: Union[None, str, torch.device] = None,
+                       distance_backend: str = "kernel"
                        ) -> Tuple[RegionTree, RegionMetrics, AnalysisResult]:
     """Static per-region analysis of a train step for a dense or moe
-    arch; the analyzer runs on ``device`` (None: the card)."""
+    arch; the analyzer runs on the ``distance_backend`` lane on
+    ``device`` (None: the card; the "numpy" lane is the exact host lane
+    and needs none)."""
     params, axes, opt_shapes, opt_axes = abstract_model_state(cfg)
     p_sh, o_sh = model_shardings(cfg, params, axes, opt_shapes, opt_axes,
                                  mesh)
     p = {k: distribute(t, p_sh[k]) for k, t in params.items()}
-    act_rules = rules_for(cfg, param=False)
+    act_rules = rules_for(cfg, param=False, sp=True)
+    unfused = not cfg.use_flash
     chips = int(mesh.size())
     B, S, D = shape.global_batch, shape.seq_len, cfg.d_model
     meta = torch.device("meta")
@@ -98,7 +108,7 @@ def analyze_train_cell(cfg: ModelConfig, shape: InputShape, mesh,
                                  rope_dim(cfg, cfg.resolved_head_dim),
                                  cfg.rope_theta)
             out = attention(lp["attn"], cfg, h, positions, angles)
-        return x + out
+        return x + scatter_seq(out)
 
     def ffn_fn(lp, x):
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -106,7 +116,7 @@ def analyze_train_cell(cfg: ModelConfig, shape: InputShape, mesh,
             out = moe_mod.moe_block(lp["moe"], cfg, h)[0]
         else:
             out = mlp(lp["mlp"], h, cfg.activation)
-        return x + out
+        return x + scatter_seq(out)
 
     def embed_fn(table, tokens):
         return embed(table, cfg, tokens)
@@ -126,14 +136,15 @@ def analyze_train_cell(cfg: ModelConfig, shape: InputShape, mesh,
                for k, t in opt_shapes["v"].items()},
          "step": distribute(opt_shapes["step"], o_sh["step"])}
     costs: Dict[str, Dict[str, float]] = {}
-    costs["embed"] = _region_cost(embed_fn, (p["embed"], tok), mesh,
-                                  act_rules)
-    costs["attention"] = _region_cost(attn_fn, (lp, x), mesh, act_rules)
+    def cost(fn, *args):
+        return _region_cost(fn, args, mesh, act_rules, unfused)
+
+    costs["embed"] = cost(embed_fn, p["embed"], tok)
+    costs["attention"] = cost(attn_fn, lp, x)
     kind = "moe" if cfg.moe is not None else "mlp"
-    costs[kind] = _region_cost(ffn_fn, (lp, x), mesh, act_rules)
-    costs["head_loss"] = _region_cost(
-        loss_fn, (p["embed"], p.get("head"), x, tok), mesh, act_rules)
-    costs["optimizer"] = _region_cost(opt_fn, (p, p, o), mesh, act_rules)
+    costs[kind] = cost(ffn_fn, lp, x)
+    costs["head_loss"] = cost(loss_fn, p["embed"], p.get("head"), x, tok)
+    costs["optimizer"] = cost(opt_fn, p, p, o)
 
     # scale per-layer regions by depth and the fwd+bwd multiplier
     L = cfg.n_layers
@@ -161,13 +172,16 @@ def analyze_train_cell(cfg: ModelConfig, shape: InputShape, mesh,
         }
     rm = static_metrics_from_costs(sorted(metrics), metrics, n_processes=1,
                                    tree=tree)
-    az = AutoAnalyzer(tree, peak_flops_per_s=hw.peak_flops, device=device)
+    az = AutoAnalyzer(tree, peak_flops_per_s=hw.peak_flops,
+                      distance_backend=distance_backend, device=device)
     return tree, rm, az.analyze(rm)
 
 
 def report_cell(cfg, shape, mesh,
-                device: Union[None, str, torch.device] = None) -> str:
-    tree, rm, res = analyze_train_cell(cfg, shape, mesh, device=device)
+                device: Union[None, str, torch.device] = None,
+                distance_backend: str = "kernel") -> str:
+    tree, rm, res = analyze_train_cell(cfg, shape, mesh, device=device,
+                                       distance_backend=distance_backend)
     lines = [f"AutoAnalyzer disparity triage — {cfg.name} × {shape.name}",
              render(tree, res)]
     return "\n".join(lines)

@@ -25,13 +25,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import constrain
+from repro_torch.sharding import (constrain, gather_seq, scatter_seq,
+                                   sequence_parallel)
 
 from .layers import (_project, attention, cross_entropy, embed,
                      init_attention_cache, logits_from, mlp, rms_norm,
                      rope_angles, rope_dim)
-from .transformer import (ACT_AXES, _param, _params, _zeros,
-                          attention_shapes, chunked_ce_from_hidden,
+from .transformer import (ACT_AXES, _param, _params, _shifted_targets,
+                          _zeros, attention_shapes, chunked_ce_from_hidden,
                           decode_positions, functional_call, mlp_shapes,
                           remat)
 
@@ -61,12 +62,11 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, positions, angles) -> torch.Tensor:
         cfg = self.cfg
-        x = constrain(x + attention(self.attn, self.ecfg,
-                                    rms_norm(x, self.ln1, cfg.norm_eps),
-                                    positions, angles), ACT_AXES)
-        return constrain(x + mlp(self.mlp, rms_norm(x, self.ln2,
-                                                    cfg.norm_eps),
-                                 cfg.activation), ACT_AXES)
+        x = constrain(x + scatter_seq(attention(
+            self.attn, self.ecfg, rms_norm(x, self.ln1, cfg.norm_eps),
+            positions, angles)), ACT_AXES)
+        return constrain(x + scatter_seq(mlp(self.mlp, rms_norm(
+            x, self.ln2, cfg.norm_eps), cfg.activation)), ACT_AXES)
 
 
 class DecoderLayer(nn.Module):
@@ -87,7 +87,9 @@ class DecoderLayer(nn.Module):
     def cross_kv(self, enc_out: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's ``_cross_kv``: k and v (B, T_enc, KV, dh) of the
-        encoder's output, not roped."""
+        encoder's output, not roped (its sequence gathered under sequence
+        parallelism)."""
+        enc_out = gather_seq(enc_out)
         return (_project(enc_out, self.cross_attn["wk"]),
                 _project(enc_out, self.cross_attn["wv"]))
 
@@ -100,16 +102,14 @@ class DecoderLayer(nn.Module):
         if isinstance(cross, torch.Tensor):
             k, v = self.cross_kv(cross)
             cross = (k, v, cross_positions(cross))
-        x = constrain(x + attention(self.self_attn, cfg,
-                                    rms_norm(x, self.ln1, cfg.norm_eps),
-                                    positions, angles, cache), ACT_AXES)
-        x = constrain(x + attention(self.cross_attn, cfg,
-                                    rms_norm(x, self.ln2, cfg.norm_eps),
-                                    positions, None, kv_override=cross),
-                      ACT_AXES)
-        return constrain(x + mlp(self.mlp, rms_norm(x, self.ln3,
-                                                    cfg.norm_eps),
-                                 cfg.activation), ACT_AXES)
+        x = constrain(x + scatter_seq(attention(
+            self.self_attn, cfg, rms_norm(x, self.ln1, cfg.norm_eps),
+            positions, angles, cache)), ACT_AXES)
+        x = constrain(x + scatter_seq(attention(
+            self.cross_attn, cfg, rms_norm(x, self.ln2, cfg.norm_eps),
+            positions, None, kv_override=cross)), ACT_AXES)
+        return constrain(x + scatter_seq(mlp(self.mlp, rms_norm(
+            x, self.ln3, cfg.norm_eps), cfg.activation)), ACT_AXES)
 
 
 class EncDec(nn.Module):
@@ -167,7 +167,7 @@ class EncDec(nn.Module):
         S) -> (logits (B, S, V) float32, {"aux": 0}); ``return_hidden``
         returns the final-normed hidden states instead."""
         enc_out = self.encode(embeds)
-        x = embed(self.embed, self.cfg, tokens)
+        x = constrain(embed(self.embed, self.cfg, tokens), ACT_AXES)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         angles = self._angles(positions)
@@ -247,10 +247,17 @@ def loss_fn(model: EncDec, params: Optional[Params],
     """The reference's encdec ``loss_fn``: next-token cross-entropy of the
     decoder over ``encode(batch["embeds"])``, with no mask (the batch's
     mask is not read, as in the reference); chunked from the hidden states
-    above ``S·vocab = 2**26``.  Returns ``(loss, {"loss", "aux"})``."""
+    above ``S·vocab = 2**26`` and under sequence parallelism (as the
+    dense families' ``loss_fn``).  Returns ``(loss, {"loss", "aux"})``."""
     cfg = model.cfg
     tokens, labels = batch["tokens"], batch["labels"]
-    if tokens.shape[1] * cfg.vocab > 2 ** 26:
+    if sequence_parallel():     # as the dense families' loss_fn
+        x, info = functional_call(model, params, tokens, batch["embeds"],
+                                  return_hidden=True)
+        head = dict(model.named_parameters()) if params is None else params
+        loss = chunked_ce_from_hidden(head, cfg, x,
+                                      *_shifted_targets(labels, None, 0))
+    elif tokens.shape[1] * cfg.vocab > 2 ** 26:
         x, info = functional_call(model, params, tokens, batch["embeds"],
                                   return_hidden=True)
         head = dict(model.named_parameters()) if params is None else params

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import (FlashAttentionFunction, RmsnormFunction,
                                  flash_attention, local, rmsnorm)
-from repro_torch.sharding import constrain
+from repro_torch.sharding import constrain, gather_seq, weights_cheaper
 
 # Position of a KV-cache slot that was never written: masked by the causal
 # test of every real query.
@@ -167,6 +167,11 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, heads, dh) -> (B, S, heads, dh), one matrix
     product (the reference's einsum "bsd,dhk->bshk")."""
     d, heads, dh = w.shape
+    if local.is_dtensor(w) and local.shard_count(w, 1) == 1:
+        # heads whole (kv heads): each rank's rows times the whole weight,
+        # so the heads stay whole for the attention kernel
+        return local.rows(lambda x, w: (x @ w.reshape(d, heads * dh)).view(
+            *x.shape[:-1], heads, dh), x, w)
     if local.is_dtensor(w):     # reshaped shard by shard
         return local.split_dim(x @ local.merge_dims(w, 1), x.dim() - 1, dh)
     return (x @ w.reshape(d, heads * dh)).view(*x.shape[:-1], heads, dh)
@@ -188,8 +193,10 @@ def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     k_positions) is cross-attention: k and v come from it as they are, q
     is not roped either (``angles`` is unused), and the call is
     non-causal with no window whatever ``cfg`` says, as in the reference.
-    Returns (B, S, d).
+    Under sequence parallelism x's sequence is gathered first
+    (:func:`~repro_torch.sharding.gather_seq`).  Returns (B, S, d).
     """
+    x = gather_seq(x)
     q = _project(x, p["wq"])
     if kv_override is not None:
         k, v, k_pos = kv_override
@@ -197,8 +204,12 @@ def attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                       softcap=cfg.attn_logit_softcap)
         return _out_project(out, p["wo"])
     q = apply_rope(q, angles, cfg)
-    k = apply_rope(_project(x, p["wk"]), angles, cfg)
-    v = _project(x, p["wv"])
+    k = v = None
+    if cache is None and local.is_dtensor(p["wk"]):
+        k, v = (local.kv_project(x, p[w], p["wq"]) for w in ("wk", "wv"))
+    if k is None:
+        k, v = _project(x, p["wk"]), _project(x, p["wv"])
+    k = apply_rope(k, angles, cfg)
     k_pos = positions
     if cache is not None:
         _write_cache(cache, x.shape[1], True,
@@ -289,6 +300,7 @@ def mla_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     The cache is updated in place.  Returns (B, S, d)."""
     m = cfg.mla
     nope, r = m.nope_head_dim, m.kv_lora_rank
+    x = gather_seq(x)
     q = _project(x, p["wq"])
     q_rope = apply_rope(q[..., nope:], angles, rope_cfg)
     kv_a = x @ p["wkv_a"]
@@ -326,8 +338,20 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
         activation: str) -> torch.Tensor:
-    h = _act(x @ p["wg"], activation) * (x @ p["wi"])
-    return h @ p["wo"]
+    """The gated MLP.  Under sequence parallelism it gathers x's sequence,
+    or, where that moves more bytes than its weights
+    (:func:`~repro_torch.sharding.weights_cheaper`), runs on each rank's
+    sequence shard with the weights gathered whole."""
+    ws = (p["wg"], p["wi"], p["wo"])
+    if weights_cheaper(x, *ws):
+        return local.rows(lambda x, *ws: _mlp(x, *ws, activation), x, *ws)
+    return _mlp(gather_seq(x), *ws, activation)
+
+
+def _mlp(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
+         wo: torch.Tensor, activation: str) -> torch.Tensor:
+    h = _act(x @ wg, activation) * (x @ wi)
+    return h @ wo
 
 
 # --------------------------------------------------------------------------
@@ -361,22 +385,58 @@ def logits_from(table: torch.Tensor, head: Optional[torch.Tensor],
 # --------------------------------------------------------------------------
 # loss
 # --------------------------------------------------------------------------
-def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def label_logits(logits: torch.Tensor, labels: torch.Tensor,
+                 by_mask: bool = False) -> torch.Tensor:
     """``logits[..., labels]``: (..., V) and (...) -> (...).  On a DTensor
-    whose vocab dim may be sharded, the label's logit is picked by a mask
-    and a sum over the vocab (exact: every other term is 0), which DTensor
-    shards; its gather is not supported there."""
-    if local.is_dtensor(logits):
+    whose vocab dim may be sharded, or with ``by_mask``, the label's logit
+    is picked by a mask and a sum over the vocab (exact: every other term
+    is 0), which DTensor shards; its gather is not supported there."""
+    if by_mask or local.is_dtensor(logits):
         vocab = torch.arange(logits.shape[-1], device=logits.device)
         return torch.where(vocab == labels[..., None], logits,
                            0.0).sum(dim=-1)
     return torch.gather(logits, -1, labels[..., None].long())[..., 0]
 
 
+def logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last (vocab) dim.  On a DTensor it is the
+    vocabulary-parallel form: each rank takes the max and the sum of
+    exponentials of its own vocab rows, and only (...)-shaped partial
+    results cross the mesh (an all-reduce of the max, then of the sum),
+    so the (..., V) logits are never gathered.  Elsewhere
+    ``torch.logsumexp``."""
+    if not local.is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    return _VocabLogSumExp.apply(logits)
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """:func:`logsumexp` of DTensor logits, forward and backward on their
+    vocab shards; the backward is ``torch.logsumexp``'s formula, the
+    gradient times ``exp(logits - lse)``."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse = ctx.saved_tensors
+        return grad[..., None] * torch.exp(logits - lse[..., None])
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token negative log-likelihood, masked where ``mask`` is
-    given (the reference's ``cross_entropy``)."""
+    given (the reference's ``cross_entropy``).  DTensor logits are
+    gathered along their vocab: this path serves sequences short enough
+    for whole logits (``transformer.loss_fn``), and the sharded step's
+    gradients then round as the unsharded step's, which its updated
+    parameters are held to; the chunked path computes on the vocab
+    shards (:func:`logsumexp`)."""
     lse = torch.logsumexp(logits, dim=-1)
     nll = lse - label_logits(logits, labels)
     if mask is not None:

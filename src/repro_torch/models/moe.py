@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import local
-from repro_torch.sharding import constrain
+from repro_torch.sharding import constrain, gather_seq
 
 from .layers import _act
 
@@ -164,6 +164,47 @@ def _rows_wrap(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return local.wrap(t, like.device_mesh, like.placements)
 
 
+def _experts(p, cfg: ModelConfig, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' gated MLP on buf (Bg, E, C, D), batched over groups and
+    experts.  On a DTensor buf whose experts are cut over ``model`` each
+    rank runs its own experts on its own buffers with their weights whole
+    (the EP layout: expert-sharded weights only gathered off the expert
+    dim).  For TP experts (the expert dim of the weights whole, their
+    width cut) it does so only where the weights gathered whole move
+    fewer bytes than the buffers gathered over the experts; otherwise,
+    and wherever the buffers' experts are not cut, the buffers are
+    gathered once and the products keep the width's shards (a pending sum
+    then, reduced by the caller's constraint)."""
+    ws = (p["wg"], p["wi"], p["wo"])
+
+    def experts(b, wg, wi, wo):
+        return (_act(b @ wg, cfg.activation) * (b @ wi)) @ wo
+
+    if not local.is_dtensor(buf):
+        return experts(buf, *ws)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    E, n = buf.shape[1], local.shard_count(buf, 1)
+    ep = n > 1 and all((q == Shard(1)) == (w == Shard(0))
+                       for q, w in zip(buf.placements, ws[0].placements))
+    whole = sum(w.numel() for w in ws) * buf.element_size()
+    gathered = buf.to_local().numel() * n * buf.element_size()
+    if not ep and (n == 1 or whole > gathered):
+        return experts(local.keep_shards(buf, (0, 2, 3)), *ws)
+    first = local.shard_index(buf, 1) * (E // n)
+
+    def mine(w):
+        if ep:  # the expert shards kept, every other gathered
+            w = local.keep_shards(w, (0,))
+            return w.to_local(grad_placements=[
+                g if g == Shard(0) else Partial() if isinstance(q, Shard)
+                else Replicate() for g, q in zip(w.placements,
+                                                 buf.placements)])
+        return local.replicated_local(w, buf)[first:first + E // n]
+
+    return local.wrap(experts(buf.to_local(), *(mine(w) for w in ws)),
+                      buf.device_mesh, buf.placements)
+
+
 def _global_counts(counts: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """counts itself; on a DTensor ``like``, this rank's counts summed over
     the ranks that hold other rows and replicated."""
@@ -186,8 +227,10 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     DTensor products, the expert buffers constrained to ``BUF_AXES`` as in
     the reference; routing, dispatch and combine run on each rank's rows
     (the rows of a group stay on one rank, else the batch is gathered
-    first); the aux loss and the counts are over the global batch."""
+    first; under sequence parallelism the sequence is gathered before
+    all); the aux loss and the counts are over the global batch."""
     mo = cfg.moe
+    x = gather_seq(x)
     B, S, D = x.shape
     E, k = mo.n_experts, mo.top_k
     G = groups(B, S)
@@ -211,8 +254,7 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
 
     # the experts, batched over groups and experts
     buf = constrain(_rows_wrap(buf, x), BUF_AXES)
-    h = _act(buf @ p["wg"], cfg.activation) * (buf @ p["wi"])
-    y_buf = _rows_local(constrain(h @ p["wo"], BUF_AXES), x
+    y_buf = _rows_local(constrain(_experts(p, cfg, buf), BUF_AXES), x
                         ).view(Bg, E * capacity, D)
 
     # combine: gates cast to the activation dtype before they multiply;

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import gather_seq
 
 _C = 8.0
 
@@ -98,7 +99,9 @@ def rglru_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                 state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.Tensor:
     """x (B, T, d) -> y (B, T, d).  With ``state`` ({"conv", "h"}) the
-    block continues from it and updates it in place."""
+    block continues from it and updates it in place.  Under sequence
+    parallelism x's sequence is gathered first."""
+    x = gather_seq(x)
     u = x @ p["w_in"]
     u, new_conv = causal_conv1d(u, p["conv"],
                                 None if state is None else state["conv"])

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import Wkv6Function, local, wkv6
+from repro_torch.sharding import gather_seq
 
 from .layers import _differentiable
 
@@ -80,7 +81,9 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``state["S"]``; without it both start from zeros.  A call that
     autograd records runs :class:`Wkv6Function` and returns the final
     state as a new tensor; any other call updates ``S`` in place.
-    Returns (y (B, T, D), {"S", "last_tm"})."""
+    Under sequence parallelism x's sequence is gathered first.  Returns
+    (y (B, T, D), {"S", "last_tm"})."""
+    x = gather_seq(x)
     B, T, D = x.shape
     H, dh = heads(cfg)
     xs = _shift(x, None if state is None else state["last_tm"])
@@ -126,6 +129,7 @@ def rwkv_channel_mix(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``state["last_cm"]`` with a state); the receptance ``cr`` sees x
     unshifted; the activation is relu², whatever ``cfg.activation`` says.
     Returns (y (B, T, D), {"last_cm"})."""
+    x = gather_seq(x)
     xs = _shift(x, None if state is None else state["last_cm"])
     xk = x + (xs - x) * p["mu_c"]
     k = torch.square(F.relu(xk @ p["ck"]))

@@ -46,14 +46,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding import constrain
+from repro_torch.kernels import local
+from repro_torch.sharding import constrain, scatter_seq, sequence_parallel
 
 from . import moe as moe_mod
 from . import rglru, rwkv
 from .layers import (attention, cross_entropy, embed, init_attention_cache,
-                     init_mla_cache, label_logits, logits_from, mla_angles,
-                     mla_attention, mla_rope_cfg, mlp, rms_norm, rope_angles,
-                     rope_dim)
+                     init_mla_cache, label_logits, logits_from, logsumexp,
+                     mla_angles, mla_attention, mla_rope_cfg, mlp, rms_norm,
+                     rope_angles, rope_dim)
 
 # Every family the reference knows; this module builds all but encdec.
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid", "encdec")
@@ -191,7 +192,7 @@ class DenseBlock(nn.Module):
                               self.rope_cfg, cache)
         else:
             h = attention(self.attn, cfg, h, positions, angles, cache)
-        x = constrain(x + h, ACT_AXES)
+        x = constrain(x + scatter_seq(h), ACT_AXES)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.moe is not None:
             h, aux, counts = self.moe(h)
@@ -199,7 +200,7 @@ class DenseBlock(nn.Module):
             h = mlp(self.mlp, h, cfg.activation)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             counts = torch.zeros((1,), dtype=torch.int32, device=x.device)
-        return constrain(x + h, ACT_AXES), aux, counts
+        return constrain(x + scatter_seq(h), ACT_AXES), aux, counts
 
 
 class RWKVBlock(nn.Module):
@@ -228,7 +229,7 @@ class RWKVBlock(nn.Module):
         cfg = self.cfg
         h, tm = rwkv.rwkv_time_mix(self.block, cfg,
                                    rms_norm(x, self.ln1, cfg.norm_eps), state)
-        x = constrain(x + h, ACT_AXES)
+        x = constrain(x + scatter_seq(h), ACT_AXES)
         h, cm = rwkv.rwkv_channel_mix(self.block, cfg,
                                       rms_norm(x, self.ln2, cfg.norm_eps),
                                       state)
@@ -236,7 +237,7 @@ class RWKVBlock(nn.Module):
             for key, value in (*tm.items(), *cm.items()):
                 if value is not state[key]:     # S is updated in place
                     state[key].copy_(value)
-        return constrain(x + h, ACT_AXES)
+        return constrain(x + scatter_seq(h), ACT_AXES)
 
 
 def _uniform(shape, dtype, device, generator: Optional[torch.Generator],
@@ -293,10 +294,9 @@ class HybridSublayer(nn.Module):
             h = rglru.rglru_block(self.mix, cfg, h, state)
         else:
             h = attention(self.mix, cfg, h, positions, angles, state)
-        x = constrain(x + h, ACT_AXES)
-        return constrain(x + mlp(self.mlp, rms_norm(x, self.ln2,
-                                                    cfg.norm_eps),
-                                 cfg.activation), ACT_AXES)
+        x = constrain(x + scatter_seq(h), ACT_AXES)
+        return constrain(x + scatter_seq(mlp(self.mlp, rms_norm(
+            x, self.ln2, cfg.norm_eps), cfg.activation)), ACT_AXES)
 
 
 class HybridGroup(nn.ModuleDict):
@@ -548,7 +548,26 @@ def chunked_ce_from_hidden(params: Params, cfg: ModelConfig,
     states ``x`` (B, S, d), with the head of ``params`` (``embed``, and
     ``head`` when the embeddings are not tied): each chunk's float32
     logits are formed, reduced and dropped in turn (autograd keeps what
-    the backward needs of each)."""
+    the backward needs of each).  On a DTensor the logits keep their
+    vocab shards (:func:`~repro_torch.models.layers.logsumexp`); under
+    sequence parallelism each rank takes the loss of its own sequence
+    shard with the head gathered whole, the logits' sequence sharded and
+    their vocab whole as ``LOGIT_AXES`` ask there, and only the two sums
+    cross the mesh."""
+    if sequence_parallel() and local.is_dtensor(x):
+        return _sequence_local_ce(params, cfg, x, labels, mask, chunk)
+    tot, denom = _ce_sums(params["embed"], params.get("head"), cfg, x,
+                          labels, mask, chunk)
+    return tot / torch.clamp(denom, min=1.0)
+
+
+def _ce_sums(table: torch.Tensor, head: Optional[torch.Tensor],
+             cfg: ModelConfig, x: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor], chunk: int, by_mask: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the masked sum of the token losses, the sum of the mask); the
+    labels' logits picked by a mask with ``by_mask``
+    (:func:`~repro_torch.models.layers.label_logits`)."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     if mask is None:
@@ -556,14 +575,64 @@ def chunked_ce_from_hidden(params: Params, cfg: ModelConfig,
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     denom = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in range(0, S, chunk):
-        logits = constrain(logits_from(params["embed"], params.get("head"),
-                                       cfg, x[:, a:a + chunk]), LOGIT_AXES)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = label_logits(logits, labels[:, a:a + chunk])
+        logits = logits_from(table, head, cfg, x[:, a:a + chunk])
+        if local.is_dtensor(logits):
+            logits = constrain(logits, LOGIT_AXES)
+        lse = logsumexp(logits)
+        ll = label_logits(logits, labels[:, a:a + chunk], by_mask)
         mc = mask[:, a:a + chunk]
         tot = tot + ((lse - ll) * mc).sum()
         denom = denom + mc.sum()
+    return tot, denom
+
+
+def _sequence_local_ce(params: Params, cfg: ModelConfig, x, labels,
+                       mask, chunk: int) -> torch.Tensor:
+    """:func:`chunked_ce_from_hidden` of a sequence-sharded DTensor ``x``
+    on each rank's rows: the head gathered whole (its gradient a partial
+    sum over the mesh dims of x's shards), the labels and the mask cut as
+    x, each label's logit picked by a mask over its row (as the
+    reference's partitioned module selects it), and the two sums
+    all-reduced."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x = local.keep_shards(x, (0, 1))
+    mesh = x.device_mesh
+
+    def rows(t):
+        return None if t is None else local.placed_as(t, x).to_local()
+
+    tied = cfg.tie_embeddings
+    table = local.replicated_local(params["embed"], x) if tied \
+        else params["embed"]
+    head = None if tied else local.replicated_local(params["head"], x)
+    sums = torch.stack(_ce_sums(table, head, cfg, x.to_local(),
+                                rows(labels), rows(mask), chunk, True))
+    sums = local.wrap(sums, mesh, [Partial() if isinstance(p, Shard)
+                                   else Replicate() for p in x.placements])
+    tot, denom = sums.redistribute(mesh, [Replicate()] * mesh.ndim)
     return tot / torch.clamp(denom, min=1.0)
+
+
+def _shifted_targets(labels: torch.Tensor, mask: Optional[torch.Tensor],
+                     prefix: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token targets and their mask at every one of the ``prefix +
+    S`` positions of the hidden states: position ``prefix + i`` predicts
+    ``labels[:, i + 1]``; the prefix and the last position are masked.
+    The loss of these over the whole sequence is the loss of the sliced
+    one, and the activations need not be cut along their sequence
+    shards."""
+    B = labels.shape[0]
+
+    def pad(t, value):
+        return torch.cat([torch.full((B, prefix), value, dtype=t.dtype,
+                                     device=t.device), t[:, 1:],
+                          torch.full((B, 1), value, dtype=t.dtype,
+                                     device=t.device)], dim=1)
+
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return pad(labels, 0), pad(mask.to(torch.float32), 0.0)
 
 
 def loss_fn(model: Transformer, params: Optional[Params],
@@ -574,14 +643,25 @@ def loss_fn(model: Transformer, params: Optional[Params],
     ``embeds``) under ``params`` (None: the module's own).  Above
     ``S·vocab = 2**26`` (S the text's length) the loss comes chunked from
     the hidden states, as in the reference.  A vlm's loss drops the P
-    positions of its patch prefix on both paths.  The total adds the MoE
-    aux loss.  Returns ``(total, {"loss", "aux", "expert_counts"?})``."""
+    positions of its patch prefix on both paths.  Under sequence
+    parallelism the loss always comes from the hidden states, which stay
+    cut along the sequence: the targets are shifted instead
+    (:func:`_shifted_targets`).  The total adds the MoE aux loss.
+    Returns ``(total, {"loss", "aux", "expert_counts"?})``."""
     cfg = model.cfg
     labels, mask = batch["labels"], batch.get("mask")
     tokens, embeds = batch["tokens"], batch.get("embeds")
     prefix = embeds.shape[1] if cfg.family == "vlm" and embeds is not None \
         else 0
-    if tokens.shape[1] * cfg.vocab > 2 ** 26:
+    if sequence_parallel():
+        # the hidden states stay sequence-sharded: the targets shift
+        # instead, and each rank takes the loss of its own shard
+        x, info = functional_call(model, params, tokens, embeds,
+                                  return_hidden=True)
+        head = dict(model.named_parameters()) if params is None else params
+        loss = chunked_ce_from_hidden(
+            head, cfg, x, *_shifted_targets(labels, mask, prefix))
+    elif tokens.shape[1] * cfg.vocab > 2 ** 26:
         x, info = functional_call(model, params, tokens, embeds,
                                   return_hidden=True)
         head = dict(model.named_parameters()) if params is None else params

@@ -60,8 +60,22 @@ def init_opt_state(params: Tree) -> Dict[str, object]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor scalar with its pending sums reduced (replicated on the
+    mesh); a plain tensor itself."""
+    if type(t).__module__.startswith("torch.distributed.tensor"):
+        from torch.distributed.tensor import Replicate
+        mesh = t.device_mesh
+        return t.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return t
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(x.float())) for x in tree.values())
+    """The norm of every leaf together.  On DTensors each leaf's sum of
+    squares is reduced over the mesh on its own, as the reference's
+    partitioned module all-reduces one partial sum a leaf."""
+    sq = sum(_whole(torch.sum(torch.square(x.float())))
+             for x in tree.values())
     return torch.sqrt(sq)
 
 

@@ -22,7 +22,15 @@ Parallelism encoding, as in the reference:
   * EP: 'expert' -> 'model' (deepseek) or None + TP inside experts
     (mixtral);
   * DP: activation 'batch' -> ('pod', 'data');
-  * SP: activation 'seq' -> 'data' for the long-context cells.
+  * SP: activation 'seq' -> 'data' for the long-context cells;
+    sequence parallelism ('seq' -> 'model', ``rules_for(sp=True)``, the
+    training cells): the residual stream lives sequence-sharded over
+    'model' between blocks.  DTensor cannot hand a product an activation
+    cut over (pod, data) on batch and over model on sequence without
+    planning strided shards, so the port's blocks put SP's two
+    collectives in explicitly, where the reference's partitioner puts
+    them: :func:`gather_seq` after a block's norm, before its first
+    product, and :func:`scatter_seq` at the residual add.
 """
 from __future__ import annotations
 
@@ -218,6 +226,63 @@ def activation_sharding(mesh, rules: Rules):
             yield
     finally:
         _CTX.mesh, _CTX.rules = prev
+
+
+def sequence_parallel() -> bool:
+    """Inside :func:`activation_sharding` under SP rules (the residual
+    stream's ``seq`` on ``model``: ``rules_for(..., sp=True)``)?"""
+    return _CTX.mesh is not None and _CTX.rules is not None \
+        and _CTX.rules.get("seq") == "model"
+
+
+def gather_seq(x):
+    """SP's gather: ``x`` (B, S, ...) with its sequence shards all-gathered
+    and its other placements kept, so that the products after it take
+    plain ``Shard``/``Replicate`` placements.  Its backward
+    reduce-scatters the gradient back to the sequence shards.  Outside SP
+    (or on a plain tensor) ``x`` itself."""
+    if not sequence_parallel() or not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    placements = tuple(Replicate() if p == Shard(1) else p
+                       for p in x.placements)
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def weights_cheaper(x, *weights) -> bool:
+    """Under SP, with ``x``'s sequence cut: would a product of ``x`` with
+    ``weights`` move fewer bytes with the weights gathered whole and x
+    kept on its shard than with x's sequence gathered (and the product's
+    output reduce-scattered back)?  XLA's partitioner picks between the
+    two by the same count; the sequence wins at production widths, the
+    weights at a smoke model's."""
+    from torch.distributed.tensor import Shard
+    if not sequence_parallel() or not _is_dtensor(x) \
+            or Shard(1) not in x.placements:
+        return False
+    cut = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                    if p == Shard(1))
+    seq = 2 * x.to_local().numel() * (cut - 1) * x.element_size()
+    whole = sum((w.numel() - w.to_local().numel()) * w.element_size()
+                for w in weights)
+    return whole < seq
+
+
+def scatter_seq(h):
+    """SP's scatter: a block's output ``h`` redistributed to the residual
+    stream's sequence shards before the residual add (a pending sum
+    reduce-scattered, a whole sequence sliced), so that the add and the
+    norm after it run on each rank's shard.  Its backward all-gathers the
+    gradient.  Outside SP ``h`` itself."""
+    if not sequence_parallel():
+        return h
+    return constrain(h, ("batch", "seq", "act_embed"))
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__module__.startswith("torch.distributed.tensor")
 
 
 def constrain(x, axes: Sequence[Optional[str]]):

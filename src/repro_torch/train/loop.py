@@ -126,16 +126,18 @@ def shard_train_state(cfg: ModelConfig, params: Params,
 
 
 def make_sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                            mesh) -> Callable:
+                            mesh, sp: bool = False) -> Callable:
     """:func:`make_train_step` on DTensor parameters, optimizer state and
     batch (:func:`shard_train_state`, ``data.device_batch(...,
     mesh=mesh)``) under the reference's activation rules
     (``sharding.activation_sharding``): the twin of the reference's train
     step jitted with shardings.  The kernels run on each rank's shards
-    (``kernels.local``)."""
+    (``kernels.local``).  ``sp``: the rules of sequence parallelism, the
+    residual stream cut along the sequence over ``model`` between the
+    blocks' seams (``sharding.gather_seq`` / ``scatter_seq``)."""
     from repro_torch.sharding import activation_sharding, rules_for
     step = make_train_step(cfg, opt_cfg)
-    act_rules = rules_for(cfg, param=False)
+    act_rules = rules_for(cfg, param=False, sp=sp)
 
     def sharded_step(params, opt_state, batch):
         with activation_sharding(mesh, act_rules):

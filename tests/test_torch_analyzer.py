@@ -20,6 +20,7 @@ from repro.core import RegionTrace as RefTrace
 from repro.scenarios import mpibzip2_scenario as ref_bzip
 from repro.scenarios import npar1way_scenario as ref_npar
 from repro.scenarios import st_scenario as ref_st
+pytest.importorskip("torch")
 from repro_torch.core import AutoAnalyzer, RegionTrace, render
 from repro_torch.scenarios import (mpibzip2_scenario, npar1way_scenario,
                                    st_fine_scenario, st_scenario)

@@ -28,6 +28,7 @@ import math
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.models import layers as ref_layers

@@ -13,6 +13,7 @@ import pytest
 
 from repro.scenarios.corpus import CORPUS as REF_CORPUS
 from repro.scenarios.corpus import run_entry as ref_run_entry
+pytest.importorskip("torch")
 from repro_torch.scenarios.corpus import CORPUS, corpus_entries, run_entry
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.configs import get_arch as ref_arch

@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

@@ -15,6 +15,7 @@ count); the data keep clusters far apart relative to float32 roundoff.
 """
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.core import IncrementalClusterState as RefState

@@ -10,8 +10,11 @@ import dataclasses
 import importlib.util
 import pathlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.core import RegionTree as RefTree
@@ -20,7 +23,7 @@ from repro.core import static_metrics_from_costs as ref_static_metrics
 from repro.core import static_trace_from_costs as ref_static_trace
 from repro_torch.core import (CPU_TIME, WALL_TIME, H100_SXM, HardwareSpec,
                               RegionTrace, RegionTree, TimedRegionRunner,
-                              cost_of, roofline_terms,
+                              cost_of, costs_of, roofline_terms,
                               static_metrics_from_costs,
                               static_trace_from_costs)
 from repro_torch.scenarios import faults as F
@@ -368,3 +371,37 @@ def test_runtime_entry_on_the_card(cuda, name):
     r = run_entry_robust(CORPUS[name], seed=0,
                          analyzer_overrides={"device": cuda})
     assert r.passed and "rt/solver" in r.found
+
+
+# each function in jax and in torch, the same program op for op
+XLA_CASES = {
+    "scale of tanh": (lambda x: jnp.tanh(x) * 0.5,
+                      lambda x: torch.tanh(x) * 0.5),
+    "sigmoid": (jax.nn.sigmoid, torch.sigmoid),
+    "silu": (jax.nn.silu, torch.nn.functional.silu),
+    "tanh gelu": (jax.nn.gelu,
+                  lambda x: torch.nn.functional.gelu(x, approximate="tanh")),
+    "square": (jnp.square, torch.square),
+    "cube": (lambda x: x ** 3, lambda x: x ** 3),
+    "relu": (jax.nn.relu, torch.relu),
+    "where": (lambda x: jnp.where(x > 0, x, 1.0),
+              lambda x: torch.where(x > 0, x, 1.0)),
+    "product and scale": (lambda x: (x @ x) * 2.0, lambda x: (x @ x) * 2.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(XLA_CASES))
+def test_costs_of_counts_flops_as_xlas_cost_analysis(name):
+    """``costs_of(xla=True)`` (the dry-run's and the static analyzer's
+    convention) counts a program's FLOPs as the reference's compiled
+    cost analysis counts the same program's: elementwise ops too,
+    transcendentals apart, the ops XLA expands as it expands them."""
+    x = np.random.default_rng(0).standard_normal((32, 32)).astype(np.float32)
+    ref, port = XLA_CASES[name]
+    want = ref_hlo.cost_analysis_of(jax.jit(ref).lower(jnp.asarray(x))
+                                    .compile())[0]
+    got = costs_of(port, torch.from_numpy(x), xla=True)[0]
+    assert got == want, (name, got, want)
+    # the default count is the products' alone
+    assert cost_of(port, torch.from_numpy(x))[0] == \
+        (2.0 * 32 ** 3 if "product" in name else 0.0)

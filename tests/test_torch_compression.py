@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro_torch.launch.mesh import run_ranks

@@ -9,6 +9,7 @@ import pytest
 from repro import configs as ref_configs
 from repro.scenarios import corpus as ref_corpus
 from repro.scenarios import faults as ref_faults
+pytest.importorskip("torch")
 from repro_torch import configs as port_configs
 from repro_torch.scenarios import corpus as port_corpus
 from repro_torch.scenarios import faults as port_faults

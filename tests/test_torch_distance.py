@@ -21,6 +21,7 @@ skip here.
 """
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.kernels import distance as ref_dist

@@ -8,13 +8,15 @@ Both sides run in subprocesses: the port's joins a fake 8-rank world, the
 reference's sets ``XLA_FLAGS``; the test process keeps no process group.
 
 FLOPs ratios.  The two counts differ by design: the port counts matrix
-products (``torch.utils.flop_counter``) and its kernels' analytic work,
-every layer, the remat recompute as it runs and the attention backward's
-plain formulas; XLA counts elementwise operations too, fuses, and its
-chunked attention and MoE dispatch are other programs.  Both counts are
+products (``torch.utils.flop_counter``), its elementwise operations as
+XLA's cost analysis counts them (``core.hlo.elementwise_flops``) and its
+kernels' analytic work, every layer, the remat recompute as it runs and
+the attention backward's plain formulas; XLA fuses, and its chunked
+attention and MoE dispatch are other programs.  Both counts are
 deterministic, so each cell's ratio (the port's per-rank FLOPs over the
-reference's, measured on these cells) is pinned within 15%: a count that
-lost the backward, a layer or a kernel's work moves its ratio out.
+reference's, measured on these cells, the training cells under sequence
+parallelism on both sides) is pinned within 15%: a count that lost the
+backward, a layer or a kernel's work moves its ratio out.
 """
 import json
 import os
@@ -23,6 +25,7 @@ import subprocess
 import sys
 
 import pytest
+pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -39,8 +42,8 @@ def _background():
 
 ARCHS = ("chatglm3-6b", "mixtral-8x22b", "rwkv6-3b", "recurrentgemma-9b")
 # (train, decode): the port's FLOPs over the reference's on each cell
-RATIOS = {"chatglm3-6b": (1.684, 1.570), "mixtral-8x22b": (1.307, 0.977),
-          "rwkv6-3b": (0.695, 0.981), "recurrentgemma-9b": (1.118, 0.504)}
+RATIOS = {"chatglm3-6b": (1.013, 1.128), "mixtral-8x22b": (0.971, 1.017),
+          "rwkv6-3b": (0.743, 1.036), "recurrentgemma-9b": (0.954, 0.547)}
 RATIO_TOL = 0.15
 
 _PORT = r"""
@@ -128,6 +131,20 @@ def test_small_cell_against_the_reference(arch):
         ref["mem"]["argument_size_in_bytes"] + token_bytes
     assert train["roofline"]["dominant"] in ("compute", "memory",
                                              "collective")
+
+
+def test_run_cell_takes_the_references_parameters():
+    """``run_cell`` takes the reference's keywords with its defaults,
+    ``sp=True`` among them (used for training cells only)."""
+    import inspect
+    from repro.launch import dryrun as ref
+    from repro_torch.launch import dryrun
+    want = inspect.signature(ref.run_cell).parameters
+    got = inspect.signature(dryrun.run_cell).parameters
+    assert list(got) == list(want)
+    assert {k: p.default for k, p in got.items()} == \
+        {k: p.default for k, p in want.items()}
+    assert got["sp"].default is True
 
 
 def test_helpers_equal_the_references():

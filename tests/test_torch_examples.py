@@ -11,6 +11,7 @@ import math
 import pathlib
 
 import pytest
+pytest.importorskip("torch")
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

@@ -26,6 +26,7 @@ import pytest
 
 from repro.core import Verdict as RefVerdict
 from repro.fleet import VerdictIndex as RefIndex
+pytest.importorskip("torch")
 from repro_torch.core import Verdict, verdict_fingerprint
 from repro_torch.core import faultpoints as FP
 from repro_torch.core.faultpoints import InjectedCrash

@@ -6,6 +6,9 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+pytest.importorskip("torch")
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _PROBE = r"""

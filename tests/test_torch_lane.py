@@ -20,6 +20,7 @@ import pathlib
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.core import clustering as ref_cl

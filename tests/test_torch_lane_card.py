@@ -5,6 +5,7 @@ setting survives the call.  This file imports no JAX: the reference is a
 float64 evaluation of the same inputs."""
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro_torch.core import clustering as cl

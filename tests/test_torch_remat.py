@@ -23,6 +23,7 @@ import pathlib
 import weakref
 
 import pytest
+pytest.importorskip("torch")
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves

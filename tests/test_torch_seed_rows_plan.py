@@ -18,6 +18,7 @@ import importlib
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 D = importlib.import_module("repro_torch.kernels.distance")

@@ -17,6 +17,7 @@ import pathlib
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.configs import get_arch as ref_arch

@@ -15,6 +15,7 @@ import pathlib
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.scenarios import traffic as ref_traffic

@@ -18,6 +18,7 @@ import types
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro_torch.configs import get_arch, list_archs
@@ -307,6 +308,212 @@ def test_sharded_step_equals_the_unsharded_step():
                 assert np.abs(got[k] - w.numpy()).max() <= 1e-5 * scale, k
 
 
+# -- sequence parallelism: the sharded step with SP's seams --------------
+
+# (arch, seq): st-100m at 32 tokens gathers the sequence for its MLP, at
+# 256 keeps its shard and gathers the weights (``weights_cheaper``);
+# mixtral's MoE and attention gather the sequence
+SP_CASES = (("st-100m", 32), ("st-100m", 256), ("mixtral-8x22b", 32))
+
+
+def _sp_config(arch):
+    return get_arch(arch).smoke.with_(dtype="float32", param_dtype="float32")
+
+
+def _recording_routes(store):
+    """``moe.route`` recording each call's expert ids into ``store``."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recorded(p, cfg, x):
+        probs, gates, ids = route(p, cfg, x)
+        store.append(ids.detach().clone())
+        return probs, gates, ids
+    return recorded
+
+
+def _sp_rank(rank, arch, seq):
+    """One (2, 2) step under the SP rules: the loss and gradients (as
+    ``value_and_grad`` gives them), the updated parameters, gathered
+    whole, and the expert ids of each layer's forward routing."""
+    _background()
+    torch.set_num_threads(1)
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import family_module, moe
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.sharding import activation_sharding
+    from repro_torch.train.loop import (_skeleton, make_sharded_train_step,
+                                        shard_train_state, value_and_grad)
+    cfg = _sp_config(arch)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model = family_module(cfg).init(cfg, 0, "cpu")
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    dcfg = DataConfig(seq_len=seq, global_batch=8, vocab=cfg.vocab)
+    p, o = shard_train_state(cfg, params, init_opt_state(params), mesh)
+    batch = device_batch(dcfg, 0, "cpu", mesh=mesh)
+    ids = []
+    moe.route = _recording_routes(ids)
+    with activation_sharding(mesh, rules_for(cfg, param=False, sp=True)):
+        total, info, grads = value_and_grad(_skeleton(cfg), p, batch)
+    ids = [t.numpy() for t in ids[:cfg.n_layers]]
+    new_p, _, m = make_sharded_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10), mesh,
+        sp=True)(p, o, batch)
+    return (float(info["loss"].full_tensor()),
+            {k: g.full_tensor().numpy() for k, g in grads.items()},
+            {k: t.full_tensor().numpy() for k, t in new_p.items()},
+            float(m["loss"].full_tensor()), ids)
+
+
+# Adam's first update of an element is lr · g / (|g| + eps) (g clipped):
+# where |g| is within the gradients' own tolerance (1e-5 of their scale)
+# of zero, g's sign and size, and so the update, are not fixed by that
+# tolerance, and a gradient summed in another order (SP reduces each
+# weight's gradient over batch and sequence shards) moves it by up to lr.
+# blocks.0.mlp.wo[25, 34] of st-100m at 32 tokens: -3.33e-8 unsharded,
+# -6.38e-8 under SP, of a scale of 0.38.  There the step is held to the
+# unsharded AdamW on the gathered gradients instead.
+NOISE = 1e-5
+
+
+@pytest.mark.parametrize("arch,seq", SP_CASES)
+def test_sequence_parallel_step_equals_the_unsharded_step(arch, seq,
+                                                          monkeypatch):
+    """A (2, 2) step of 4 gloo ranks under sequence parallelism
+    (``make_sharded_train_step(..., sp=True)``): the loss and every
+    gradient within 1e-5 of their scale of the unsharded step's; every
+    updated parameter within 1e-5 of its scale of the unsharded AdamW
+    step on the gathered gradients, and of the unsharded step's wherever
+    the gradient is above ``NOISE`` of its scale (elsewhere the update is
+    not fixed by the gradients' tolerance); an MoE's expert ids equal,
+    layer by layer."""
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.models import family_module, moe
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
+    from repro_torch.train.loop import (_skeleton, make_train_step,
+                                        value_and_grad)
+    cfg = _sp_config(arch)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    model = family_module(cfg).init(cfg, 0, "cpu")
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    batch = device_batch(DataConfig(seq_len=seq, global_batch=8,
+                                    vocab=cfg.vocab), 0, "cpu")
+    ids = []
+    monkeypatch.setattr(moe, "route", _recording_routes(ids))
+    _, info, grads = value_and_grad(_skeleton(cfg), params, batch)
+    ids = [t.numpy() for t in ids[:cfg.n_layers]]
+    new_p, _, m = make_train_step(cfg, opt)(params, init_opt_state(params),
+                                           batch)
+    for loss, g, p, step_loss, got_ids in run_ranks(_sp_rank, 4,
+                                                    args=(arch, seq)):
+        assert abs(loss - float(info["loss"])) <= 1e-5 * abs(loss)
+        assert step_loss == loss
+        assert set(g) == set(p) == set(grads)
+        again = apply_updates(opt, params, {
+            k: torch.from_numpy(v) for k, v in g.items()},
+            init_opt_state(params))[0]
+        for k, w in grads.items():
+            w = w.numpy()
+            scale = np.abs(w).max()
+            assert np.abs(g[k] - w).max() <= 1e-5 * scale, k
+            for want, where in ((again[k].numpy(), True),
+                                (new_p[k].numpy(),
+                                 np.abs(w) > NOISE * scale)):
+                err = np.where(where, np.abs(p[k] - want), 0.0)
+                assert err.max() <= 1e-5 * np.abs(want).max(), k
+        assert len(got_ids) == len(ids) == (cfg.n_layers if cfg.moe
+                                            else 0)
+        for a, b in zip(got_ids, ids):
+            np.testing.assert_array_equal(a, b)
+
+
+def _vocab_ce_rank(rank):
+    """``chunked_ce_from_hidden`` on a (2, 2) mesh without SP: the hidden
+    states batch-cut, the head's vocab over ``model``.  Its loss, the
+    gradients of the hidden states and of the head, and the collectives
+    it issues."""
+    _background()
+    torch.set_num_threads(1)
+    from repro_torch.core.hlo import collectives_of
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import chunked_ce_from_hidden
+    from repro_torch.sharding import activation_sharding, distribute
+    from torch.distributed.tensor import Replicate, Shard
+    cfg, x, head, labels = _vocab_ce_inputs()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dx = distribute(x, (mesh, (Shard(0), Replicate()))).requires_grad_()
+    dh = distribute(head, (mesh, (Replicate(), Shard(1)))).requires_grad_()
+    dl = distribute(labels, (mesh, (Shard(0), Replicate())))
+    with activation_sharding(mesh, rules_for(cfg, param=False)):
+        loss = chunked_ce_from_hidden({"embed": dh, "head": dh}, cfg, dx,
+                                      dl, chunk=8)
+        loss.backward()
+        coll = collectives_of(lambda: chunked_ce_from_hidden(
+            {"embed": dh, "head": dh}, cfg, dx.detach(), dl, chunk=8))
+    return (float(loss.full_tensor()), dx.grad.full_tensor().numpy(),
+            dh.grad.full_tensor().numpy(), dict(coll.bytes_by_op))
+
+
+def _vocab_ce_inputs():
+    cfg = _smoke().with_(tie_embeddings=False)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 16, cfg.d_model), generator=g)
+    head = torch.randn((cfg.d_model, cfg.vocab), generator=g) * 0.3
+    labels = torch.randint(0, cfg.vocab, (4, 16), generator=g)
+    return cfg, x, head, labels
+
+
+def test_chunked_loss_runs_on_the_vocab_shards():
+    """Without SP, ``chunked_ce_from_hidden`` on DTensors takes the
+    logsumexp on the logits' vocab shards: loss and gradients within
+    1e-5 of scale of the unsharded loss's, and no collective carries the
+    (B, S, V) logits (a rank's 2 x 8 x 256 float32 chunk, 16 KiB)."""
+    from repro_torch.models.transformer import chunked_ce_from_hidden
+    cfg, x, head, labels = _vocab_ce_inputs()
+    x, head = x.requires_grad_(), head.requires_grad_()
+    loss = chunked_ce_from_hidden({"embed": head, "head": head}, cfg, x,
+                                  labels, chunk=8)
+    loss.backward()
+    for got, gx, gh, coll in run_ranks(_vocab_ce_rank, 4):
+        assert abs(got - float(loss)) <= 1e-5 * abs(float(loss))
+        for a, b in ((gx, x.grad), (gh, head.grad)):
+            b = b.numpy()
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+        assert coll.get("all-gather", 0) < 2 * 8 * cfg.vocab * 4, coll
+
+
+_SP_DRYRUN = r"""
+import json, sys
+from repro_torch.launch.mesh import fake_world, make_mesh
+from repro_torch.launch import dryrun
+import repro_torch.configs.base as base
+from repro_torch.configs import get_arch
+fake_world(8)
+mesh = make_mesh((2, 4), ("data", "model"))
+base.SHAPES["t_train"] = base.InputShape("t_train", 128, 8, "train")
+cfg = get_arch(sys.argv[1]).smoke.with_(dtype="float32",
+                                        param_dtype="float32")
+out = {sp: dryrun.run_cell(sys.argv[1], "t_train", cfg_override=cfg,
+                           mesh=mesh, probes=False, sp=sp)["memory"]
+       for sp in (True, False)}
+print("RESULT" + json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "mixtral-8x22b"])
+def test_sequence_parallel_dryrun_keeps_fewer_temp_bytes(arch):
+    """On the (2, 4) fake mesh a training cell with SP keeps the residual
+    stream cut along the sequence, so the bytes its backward keeps (temp)
+    are fewer than the same cell's without SP; its arguments and outputs
+    are the same."""
+    got = _result(_SP_DRYRUN, arch)
+    sp, full = got["true"], got["false"]
+    assert sp["temp_size_in_bytes"] < full["temp_size_in_bytes"]
+    assert sp["argument_size_in_bytes"] == full["argument_size_in_bytes"]
+    assert sp["output_size_in_bytes"] == full["output_size_in_bytes"]
+
+
 # a tensor-parallel MoE at groups of 8 rows (4 a rank: gathered first),
 # an expert-parallel one with shared experts at groups of 1 row
 MOE_CASES = (("mixtral-8x22b", 16), ("deepseek-v2-lite-16b", 64))
@@ -549,8 +756,9 @@ def test_chip_smoke_multi_device_phase_rehearsed():
     """chip_smoke's phase 32 on the host at a small size: the smoke config
     through ``launch.train --mesh 1x1`` over gloo against the unsharded
     trainer, the compressed all-reduce in a one-rank gloo group, one
-    dry-run cell and the triage example, each in a child (the phase
-    itself runs in one, below this process's priority)."""
+    dry-run cell, the SP planning cells and the triage example on two
+    lanes, each in a child (the phase itself runs in one, below this
+    process's priority)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     res = _result(_PHASE_32, "")
@@ -562,6 +770,10 @@ def test_chip_smoke_multi_device_phase_rehearsed():
                             f"bytes={c['allreduce_bytes']:,}")
     assert res["cells"]["gemma-7b/decode_32k"]["ok"]
     assert any(l.startswith("CCR") for l in res["triage"])
+    sp, no_sp = res["sp_planning"]["sp"], res["sp_planning"]["no_sp"]
+    assert sp["sp"] and not no_sp["sp"]
+    assert sp["memory"]["temp_size_in_bytes"] < \
+        no_sp["memory"]["temp_size_in_bytes"]
 
 
 _OWN_FAKE = r"""

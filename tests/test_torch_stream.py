@@ -27,6 +27,7 @@ from repro.core import RegionTrace as RefTrace
 from repro.stream import OnlineAnalyzer as RefOnline
 from repro.stream import SpooledTrace as RefSpooled
 from repro.stream import TraceSpool as RefSpool
+pytest.importorskip("torch")
 from repro_torch.core import AutoAnalyzer, RegionTrace, TimedRegionRunner
 from repro_torch.core import collector as collector_mod
 from repro_torch.core.analyzer import Verdict

@@ -11,6 +11,7 @@ import pytest
 from repro.core import roughset as ref_rs
 from repro.core.trace import RegionTrace as RefTrace
 from repro.scenarios import corpus as ref_corpus
+pytest.importorskip("torch")
 from repro_torch.core import roughset as port_rs
 from repro_torch.core.trace import RegionTrace as PortTrace
 from repro_torch.scenarios import corpus as port_corpus

@@ -16,6 +16,7 @@ import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from repro.kernels import ref as ref_kernels
