@@ -210,8 +210,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    on the torch lane equal to ``VERDICTS_synthetic.json``;
 30. the command-line twins in child processes: ``python -m
    repro_torch.cli.run_bench --grid default --out <tmp>`` with every
-   kernel and torch device row present, then ``--check <tmp>`` exiting
-   0; ``repro_torch.cli.run_corpus --backend synthetic
+   kernel and torch device row present, then ``--check <tmp>`` at its
+   default factor 2; where it flags a regression, a fresh baseline and
+   one more check, failing only where one row regressed in both
+   (``bench_self_check``; every row's ratio of every check logged);
+   ``repro_torch.cli.run_corpus --backend synthetic
    --distance-backend torch`` passing 19/19, and printing the same table
    under ``--jobs 4`` apart from wall_s;
 31. the benchmark and example twins, in this process (no process
@@ -3574,16 +3577,18 @@ def lanes_fleet_phase(m: int, n: int, straggler_procs: int, device,
     return out
 
 
-def child(args, timeout: int = 600) -> subprocess.CompletedProcess:
+def child(args, timeout: int = 600,
+          check: bool = True) -> subprocess.CompletedProcess:
     """``python -m <args>`` from the checkout's root with its ``src`` on
-    the path; raises unless it exits 0."""
+    the path; raises unless it exits 0 (or, with ``check=False``, returns
+    whatever it exited)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]]
                                if env.get("PYTHONPATH") else []))
     r = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=timeout)
-    if r.returncode != 0:
+    if check and r.returncode != 0:
         raise AssertionError(f"python -m {' '.join(args)} exited "
                              f"{r.returncode}:\n{r.stdout[-4000:]}\n"
                              f"{r.stderr[-4000:]}")
@@ -3596,6 +3601,64 @@ WALL_S = re.compile(r" +\d+\.\d{3}  (ok|FAIL)$")
 def corpus_table(stdout: str) -> list:
     """run_corpus's table with its wall_s column masked."""
     return [WALL_S.sub(r" WALL  \1", line) for line in stdout.splitlines()]
+
+
+REGRESSED = re.compile(r"^(\S+): .*  REGRESSION$", re.M)
+
+
+def bench_self_check(run, path: str, args=()) -> dict:
+    """``run_bench --check path`` against the run's own baseline, at the
+    CLI's default factor.  Where it flags a regression, a fresh baseline
+    is taken (the first's grid and repeat) and checked once more, as
+    ``run_entry_robust`` gives a wall-clock entry one fresh collection: a
+    baseline taken in a quiet moment of the host is not held against
+    every later check.
+
+    ``run(argv) -> (exit code, stdout)`` runs the CLI.  Every check writes
+    its own timings (``--out``), so each row's ratio to its baseline is
+    kept, whether the CLI flagged it or not.  Raises when a baseline run
+    exits other than 0, a check other than 0 or 1, or when one row
+    regressed in both checks.  Returns ``{"checks": [{"rc", "regressed",
+    "ratios"}, ...], "last": line}``."""
+    with open(path) as f:
+        meta = json.load(f)["meta"]
+    checks = []
+    base_path = path
+    for k in range(2):
+        if k:
+            base_path = f"{path}.base{k}.json"
+            rc, stdout = run(["--grid", meta["grid"], "--repeat",
+                              str(meta["repeat"]), "--out", base_path,
+                              *args])
+            if rc != 0:
+                raise AssertionError(f"run_bench --out {base_path} exited "
+                                     f"{rc}:\n{stdout[-4000:]}")
+        with open(base_path) as f:
+            base = json.load(f)["entries"]
+        out = f"{path}.check{k}.json"
+        rc, stdout = run(["--check", base_path, "--out", out, *args])
+        if rc not in (0, 1):
+            raise AssertionError(f"run_bench --check exited {rc}:\n"
+                                 f"{stdout[-4000:]}")
+        with open(out) as f:
+            now = json.load(f)["entries"]
+        checks.append({
+            "rc": rc, "regressed": REGRESSED.findall(stdout),
+            "ratios": {n: now[n]["seconds"] / e["seconds"]
+                       for n, e in base.items()
+                       if n in now and e["seconds"] > 0}})
+        if rc == 0:
+            return {"checks": checks,
+                    "last": stdout.strip().splitlines()[-1]}
+    both = sorted(set(checks[0]["regressed"]) & set(checks[1]["regressed"]))
+    if both:
+        raise AssertionError(
+            f"run_bench --check: {both} regressed in both checks; ratios "
+            f"{json.dumps([c['ratios'] for c in checks])}")
+    return {"checks": checks,
+            "last": f"check ok: no row regressed in both checks "
+                    f"({checks[0]['regressed']}, then "
+                    f"{checks[1]['regressed']})"}
 
 
 def cli_twins_phase(device, grid: str = "default", jobs: int = 4) -> dict:
@@ -3627,8 +3690,13 @@ def cli_twins_phase(device, grid: str = "default", jobs: int = 4) -> dict:
                                  for w in want}
         out["meta"] = doc["meta"]
         t0 = time.perf_counter()
-        out["check"] = child(["repro_torch.cli.run_bench", "--check", path,
-                              *dev]).stdout.strip().splitlines()[-1]
+
+        def run(argv):
+            r = child(["repro_torch.cli.run_bench", *argv], check=False)
+            return r.returncode, r.stdout + r.stderr
+
+        check = bench_self_check(run, path, dev)
+        out["check"], out["checks"] = check["last"], check["checks"]
         out["check_s"] = time.perf_counter() - t0
     argv = ["repro_torch.cli.run_corpus", "--backend", "synthetic",
             "--distance-backend", "torch", *dev]
@@ -3756,6 +3824,10 @@ def lane_phases() -> dict:
         f"{json.dumps(cli['device_rows_ms'])}; meta "
         f"{json.dumps(cli['meta'])}; {cli['bench_s']:.1f} s; --check: "
         f"{cli['check']} ({cli['check_s']:.1f} s)")
+    for k, c in enumerate(cli["checks"]):
+        log(f"[30] --check {k + 1}: rc {c['rc']}, regressed "
+            f"{c['regressed']}, ratios to its baseline "
+            f"{json.dumps({n: round(v, 4) for n, v in c['ratios'].items()})}")
     log(f"[30] run_corpus --backend synthetic --distance-backend torch: "
         f"19/19 in {cli['corpus_s']:.1f} s; --jobs 4 the same table in "
         f"{cli['corpus_jobs_s']:.1f} s; phase "

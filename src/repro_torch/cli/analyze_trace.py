@@ -36,7 +36,7 @@ def parse_window(spec: str):
     return (int(start) if start else 0, int(stop) if stop else None)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("trace", help="path to a RegionTrace .npz artifact")
@@ -55,6 +55,11 @@ def main(argv=None) -> int:
                          "(default: cuda)")
     ap.add_argument("--json", action="store_true",
                     help="emit the verdict(s) as JSON instead of the report")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.window and args.per_window:
         ap.error("--window and --per-window are mutually exclusive")

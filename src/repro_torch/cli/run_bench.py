@@ -67,7 +67,7 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -87,6 +87,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="device of the kernel and torch rows (default: "
                          "the card; left out without one)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     import torch

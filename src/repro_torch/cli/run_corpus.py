@@ -154,7 +154,7 @@ def _print_row(row: dict, wname: int) -> None:
               f"at the planted paths (globally: {row['causes_global']})")
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
@@ -186,6 +186,11 @@ def main(argv=None) -> int:
                     help="device of the kernel and torch lanes, the "
                          "runtime regions and the trainers (default: "
                          "cuda)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.jobs < 1:
         print("--jobs must be >= 1", file=sys.stderr)

@@ -93,7 +93,7 @@ def check(baseline_path: str, seed: int, distance_backend: str = "kernel",
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("out", nargs="?", default=None,
@@ -108,6 +108,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="device of the kernel and torch lanes "
                          "(default: cuda)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.check:
         if args.out:

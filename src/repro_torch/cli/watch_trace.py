@@ -71,7 +71,7 @@ def window_line(wv) -> str:
             f"{kinds:26s} {paths}")
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("spool", help="spool directory (contains spool.json)")
@@ -114,6 +114,11 @@ def main(argv=None) -> int:
                     help="after a complete run, write the classic "
                          "single-.npz artifact here (byte-identical to "
                          "the monolithic save)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.window < 1:
         ap.error("--window must be a positive step count")

@@ -49,6 +49,12 @@ def _run_bench(capsys, *args):
     return rc, out.out, out.err
 
 
+def _cli(capsys, *args):
+    """``run_bench`` as chip_smoke's ``bench_self_check`` runs it."""
+    rc, out, err = _run_bench(capsys, *args)
+    return rc, out + err
+
+
 # -- run_bench: the reference's five tests, mirrored -------------------------
 
 def test_run_grid_smoke_entries_positive():
@@ -75,10 +81,13 @@ def test_bench_writes_json_and_self_check_passes(tmp_path, capsys):
     assert doc["meta"]["torch"] == torch.__version__
     assert doc["entries"]
     assert f"wrote {out}" in stdout
-    rc, stdout, err = _run_bench(capsys, "--check", str(out),
-                                 "--device", "cpu")
-    assert rc == 0, stdout + err
-    assert "check ok" in stdout
+    # chip_smoke's phase-30 rule: a regression flagged against this
+    # baseline is checked once more against a fresh one; the same row
+    # regressing in both fails
+    res = _chip_smoke().bench_self_check(
+        lambda argv: _cli(capsys, *argv), str(out), ["--device", "cpu"])
+    assert res["last"].startswith("check ok"), res
+    assert set(res["checks"][-1]["ratios"]) == set(doc["entries"])
 
 
 def test_check_flags_regression(tmp_path, capsys):
@@ -318,6 +327,79 @@ def test_chip_smoke_cli_phase_rehearsed():
                                           "algo2/m32/n16/torch"}
     assert res["meta"]["device"] == "cpu"
     assert res["check"].startswith("check ok")
+
+
+def _fake_check(base, tmp_path, rows):
+    """A fake ``run_bench`` for ``bench_self_check``: a baseline run
+    writes ``base``; the k-th ``--check`` writes its baseline's times
+    scaled by ``rows[k]`` (row -> factor) and flags each row scaled above
+    2 as the CLI does."""
+    def write(path, times, meta=None):
+        pathlib.Path(path).write_text(json.dumps(
+            {"meta": meta or {}, "entries": {n: {"seconds": t}
+                                             for n, t in times.items()}}))
+
+    path = str(tmp_path / "bench.json")
+    write(path, base, {"grid": "smoke", "repeat": 2})
+    calls = []
+
+    def run(argv):
+        calls.append(argv)
+        out = argv[argv.index("--out") + 1]
+        if "--check" not in argv:
+            write(out, base)
+            return 0, f"wrote {out}\n"
+        scale = rows[sum("--check" in c for c in calls) - 1]
+        now = {n: t * scale.get(n, 1.0) for n, t in base.items()}
+        write(out, now)
+        flagged = [f"{n}: {base[n] * 1e3:.3f} ms -> {now[n] * 1e3:.3f} ms "
+                   f"({now[n] / base[n]:.2f}x)  REGRESSION"
+                   for n in sorted(base) if now[n] / base[n] > 2.0]
+        if flagged:
+            return 1, "\n".join(flagged) + "\n1 entries regressed\n"
+        return 0, "check ok: no entry regressed more than 2.0x\n"
+
+    return path, run, calls
+
+
+def test_phase30_check_takes_a_regression_again(tmp_path):
+    """Fault 9's pin: phase 30's ``--check`` read one host-bound row at
+    2.05x on unchanged code.  A row flagged by one check and clean against
+    a fresh baseline passes, every ratio of both checks kept; the same
+    row flagged twice fails; a clean first check is not taken again."""
+    cs = _chip_smoke()
+    base = {"algo2/m32/n16": 0.01, "seedrows/m8/n4/numpy": 0.004}
+    path, run, calls = _fake_check(
+        base, tmp_path, [{"algo2/m32/n16": 2.05}, {}])
+    res = cs.bench_self_check(run, path, ["--device", "cpu"])
+    assert len(calls) == 3 and calls[0][:2] == ["--check", path]
+    fresh = calls[1][calls[1].index("--out") + 1]
+    assert calls[1][:4] == ["--grid", "smoke", "--repeat", "2"]
+    assert calls[2][:2] == ["--check", fresh] and fresh != path
+    assert all(c[-2:] == ["--device", "cpu"] for c in calls)
+    assert [c["rc"] for c in res["checks"]] == [1, 0]
+    assert res["checks"][0]["regressed"] == ["algo2/m32/n16"]
+    assert res["checks"][0]["ratios"] == pytest.approx(
+        {"algo2/m32/n16": 2.05, "seedrows/m8/n4/numpy": 1.0})
+    assert res["checks"][1]["regressed"] == []
+    assert res["last"].startswith("check ok")
+
+    path, run, calls = _fake_check(
+        base, tmp_path, [{"algo2/m32/n16": 2.05}, {"algo2/m32/n16": 2.4}])
+    with pytest.raises(AssertionError, match="regressed in both"):
+        cs.bench_self_check(run, path)
+
+    path, run, calls = _fake_check(
+        base, tmp_path, [{"algo2/m32/n16": 2.05},
+                         {"seedrows/m8/n4/numpy": 3.0}])
+    res = cs.bench_self_check(run, path)
+    assert [c["regressed"] for c in res["checks"]] == \
+        [["algo2/m32/n16"], ["seedrows/m8/n4/numpy"]]
+    assert res["last"].startswith("check ok")
+
+    path, run, calls = _fake_check(base, tmp_path, [{}])
+    assert len(cs.bench_self_check(run, path)["checks"]) == 1
+    assert len(calls) == 1
 
 
 def test_chip_smoke_bench_phase_rehearsed():

@@ -223,6 +223,55 @@ def test_runner_times_cpu_regions_on_the_calling_thread():
         torch.set_num_threads(before)
 
 
+def test_runner_takes_a_descheduled_cpu_sample_again():
+    """Fault 8's pin: with one repeat, a take whose thread was off the CPU
+    was the sample, and beside CPU-bound processes such a sample made an
+    expert probe read hot, which broke the MoE recovery entry's persisting
+    verdict.
+    Here one take of shard 1 sleeps 50 ms, off the CPU as a preempted
+    thread is: that take is taken again and the region's own time
+    recorded (a loaded host may deschedule other takes too)."""
+    import time
+    calls = []
+    x = torch.ones((64, 64))
+
+    def region(s, d):
+        calls.append(d)
+        if d == 1 and calls.count(1) == 2:      # after the warmup call
+            time.sleep(0.05)
+        return s + float((x @ x).sum()) * 1e-9
+
+    tree = RegionTree("t")
+    tree.add("r", fn=region)
+    runner = TimedRegionRunner(tree, warmup=1, repeats=1, device="cpu")
+    trace = runner.run_trace([0.0, 0.0, 0.0], [0, 1, 2])
+    wall = trace.metric(WALL_TIME)[0, 0, :, 0]
+    assert wall[1] < 0.025, wall
+    assert runner.retakes >= 1 and calls.count(1) >= 3
+    assert trace.meta["retake"]["made"] == runner.retakes
+
+    from repro_torch.core.collector import _descheduled
+    assert _descheduled(0.05, 0.0, 1e-6)
+    assert not _descheduled(0.05, 0.04, 1e-6)
+    assert not _descheduled(0.015, 0.0, 0.01)   # within a coarse clock's
+                                                # two ticks
+
+
+def test_runner_header_states_the_retake_rule(tmp_path):
+    """Every raw reading but a descheduled take's survives into the trace,
+    so the header says how samples were chosen: the CPU's rule and the
+    takes this call made again, through save and load."""
+    tree = RegionTree("t")
+    tree.add("r", fn=lambda s, d: s + d)
+    runner = TimedRegionRunner(tree, warmup=1, repeats=2, device="cpu")
+    trace = runner.run_trace([torch.zeros(4)] * 2, [torch.ones(4)] * 2)
+    rule = trace.meta["retake"]
+    assert rule["off_cpu_share"] == 0.25 and rule["most"] == 3
+    assert rule["made"] == runner.retakes >= 0
+    path = trace.save(str(tmp_path / "t.npz"))
+    assert RegionTrace.load(path).meta["retake"] == rule
+
+
 def test_cost_of_counts_the_collectives_it_issues():
     """``COMM_BYTES``' source: no process group, no collective; the
     reference's op names for what DTensor and torch.distributed issue."""
