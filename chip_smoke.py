@@ -3026,13 +3026,29 @@ def _outcome(entry, r) -> dict:
     return {"onset_window": r.onset_window, "ok": True}
 
 
-def new_entries_phase(device, seeds=CHAOS_SEEDS,
-                      names=NEW_ENTRIES) -> dict:
+def log_failed_attempts(phase: str, name: str, attempts) -> None:
+    """One line for each failed attempt of ``name`` and one for each of
+    its windows (``CorpusRunResult.attempt_logs``): the window's index,
+    signature, CCR paths, every shard's wall and CPU takes by region in
+    ms, and the CPU clock's tick."""
+    for a in attempts:
+        if a["passed"]:
+            continue
+        log(f"[{phase}] failed attempt {name}@{a['seed']}, "
+            f"{len(a['windows'])} windows:")
+        for w in a["windows"]:
+            log(f"[{phase}]   window {json.dumps(w)}")
+
+
+def new_entries_phase(device, seeds=CHAOS_SEEDS, names=NEW_ENTRIES,
+                      phase: str = "18") -> dict:
     """``names`` at ``seeds`` through the port's corpus on ``device``
     (``run_entry_robust``: the wall-clock train and recovery entries get
     the corpus's one retry): each passes with the reference's outcome
-    (``_outcome``).  Returns each run's outcome and wall, the launches of
-    every kernel and the re-decisions, counted from 0."""
+    (``_outcome``).  Every failed attempt, a first one the retry passed
+    included, is logged window by window first (``log_failed_attempts``).
+    Returns each run's outcome and wall, the launches of every kernel and
+    the re-decisions, counted from 0."""
     from repro_torch import kernels as K
     from repro_torch.scenarios import CORPUS, run_entry_robust
     K.reset_launches()
@@ -3042,6 +3058,7 @@ def new_entries_phase(device, seeds=CHAOS_SEEDS,
         for seed in seeds:
             r = run_entry_robust(entry, seed=seed,
                                  analyzer_overrides={"device": device})
+            log_failed_attempts(phase, name, r.attempt_logs)
             got = _outcome(entry, r)
             if not (r.passed and got["ok"]):
                 raise AssertionError(
@@ -4580,7 +4597,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with heap_frozen():
-        moee = new_entries_phase("cuda", names=MOE_ENTRIES)
+        moee = new_entries_phase("cuda", names=MOE_ENTRIES, phase="21")
     log(f"[21] {len(MOE_ENTRIES)} MoE train entries at seeds "
         f"{list(CHAOS_SEEDS)} pass on the kernel lane with the reference's "
         f"outcomes ({len(moee['runs'])} runs, {time.perf_counter() - t0:.1f}"

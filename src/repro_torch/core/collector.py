@@ -172,10 +172,21 @@ class TimedRegionRunner:
     the regions in tree (pre-order) sequence and ``data`` is the shard's
     input batch.  There is no jit: each call runs eagerly.
 
-    ``repeats`` measures each (region, shard) pair that many times and
-    records the minimum (the classic noise-robust timing statistic —
-    scheduler preemption only ever adds time), so load on the host does not
-    masquerade as process dissimilarity.
+    ``repeats`` measures each (region, shard) pair that many times, and
+    :meth:`RegionTrace.reduce` keeps the minimum (the classic noise-robust
+    timing statistic — scheduler preemption only ever adds time), so load
+    on the host does not masquerade as process dissimilarity.  The takes
+    run repeat-major, in ``repeats`` rounds: each round takes every region
+    of every shard once, regions in tree order, shards in turn, each
+    region on the same input state in every round (the first round also
+    counts each region's cost and warms each shard up right before its
+    take, and its outputs carry the state on; with one repeat that is
+    the whole order).  A burst then lands on one take of one shard, and a
+    drift of the host that lasts a region's takes on every shard (one
+    expert probe read 2.9x its neighbours on all 12 takes of a window on
+    an H100) lands on one round of them; the minimum drops both.  Every
+    take is recorded; the header states the order and the rule
+    (``meta["takes"]``).
 
     On the CPU a take whose thread was descheduled (:func:`_descheduled`)
     is taken again, up to :data:`RETAKES` times, and the take with the
@@ -239,13 +250,16 @@ class TimedRegionRunner:
         by the ``cpu_tick`` stored in the header — so an offline analysis
         of the saved artifact reproduces this host's decisions exactly.
 
-        The one choice made before a sample is recorded is the CPU's
-        retake rule: a take whose thread was descheduled is taken again
-        and the least-wall take of it and its retakes is the repeat's
-        sample; the others are dropped.  The header's ``meta["retake"]``
-        states the rule (``off_cpu_share``, ``most`` takes again a sample:
-        0 on the card) and how many takes this call made again
-        (``made``); a merged trace keeps its first trace's header."""
+        The takes are made in rounds over the whole step
+        (``meta["takes"]``: ``order`` ``"repeat-major"``, ``reduce``
+        ``"min"``).  The one choice made before a sample is recorded is
+        the CPU's retake rule: a take whose thread was descheduled is
+        taken again and the least-wall take of it and its retakes is the
+        repeat's sample; the others are dropped.  The header's
+        ``meta["retake"]`` states the rule (``off_cpu_share``, ``most``
+        takes again a sample: 0 on the card) and how many takes this call
+        made again (``made``); a merged trace keeps its first trace's
+        header."""
         with _calling_thread_only(self.device):
             return self._run_trace(shard_states, shard_data)
 
@@ -281,50 +295,66 @@ class TimedRegionRunner:
             if on_card:
                 torch.cuda.synchronize(self.device)
 
+        def take(r: CodeRegion, k: int, i: int, state: Any) -> Any:
+            """Time one call of ``r`` on shard ``i``'s ``state`` as repeat
+            ``k`` and record it; return its output."""
+            nonlocal made
+            rid = r.region_id
+            if on_card:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            t0w, t0c = time.perf_counter(), clock()
+            out = r.fn(state, shard_data[i])
+            if on_card:
+                ev1.record()
+            sync()
+            t1w, t1c = time.perf_counter(), clock()
+            wall, cpu = t1w - t0w, t1c - t0c
+            for _ in range(most):
+                if not _descheduled(wall, cpu, tick):
+                    break
+                made += 1
+                t0w, t0c = time.perf_counter(), clock()
+                out = r.fn(state, shard_data[i])
+                t1w, t1c = time.perf_counter(), clock()
+                if t1w - t0w < wall:
+                    wall, cpu = t1w - t0w, t1c - t0c
+            flops, byts, comm = self.costs[rid]
+            trace.record(WALL_TIME, 0, k, i, rid, wall)
+            trace.record(CPU_TIME, 0, k, i, rid, cpu)
+            trace.record(FLOPS, 0, k, i, rid, flops)
+            trace.record(BYTES, 0, k, i, rid, byts)
+            trace.record(COMM_BYTES, 0, k, i, rid, comm)
+            if on_card:
+                self.device_s[rid][i, k] = ev0.elapsed_time(ev1) / 1e3
+            return out
+
+        inputs = {}                      # region id -> each shard's input
         for r in regions:
             rid = r.region_id
             if rid not in self.costs:
                 flops, byts, coll = hlo_mod.costs_of(r.fn, states[0],
                                                      shard_data[0])
                 self.costs[rid] = (flops, byts, float(coll.total_bytes))
-            flops, byts, comm = self.costs[rid]
-            dev = np.zeros((m, self.repeats))
+            if on_card:
+                self.device_s[rid] = np.zeros((m, self.repeats))
+            if self.repeats > 1:
+                inputs[rid] = list(states)
             for i in range(m):
+                # Each shard's warmup right before its first take: the
+                # take then reuses the blocks the warmup freed, so no
+                # allocation of the card's caching allocator lands in it.
                 for _ in range(self.warmup):
                     r.fn(states[i], shard_data[i])
                     sync()
-                for k in range(self.repeats):
-                    if on_card:
-                        ev0 = torch.cuda.Event(enable_timing=True)
-                        ev1 = torch.cuda.Event(enable_timing=True)
-                        ev0.record()
-                    t0w, t0c = time.perf_counter(), clock()
-                    out = r.fn(states[i], shard_data[i])
-                    if on_card:
-                        ev1.record()
-                    sync()
-                    t1w, t1c = time.perf_counter(), clock()
-                    wall, cpu = t1w - t0w, t1c - t0c
-                    for _ in range(most):
-                        if not _descheduled(wall, cpu, tick):
-                            break
-                        made += 1
-                        t0w, t0c = time.perf_counter(), clock()
-                        out = r.fn(states[i], shard_data[i])
-                        t1w, t1c = time.perf_counter(), clock()
-                        if t1w - t0w < wall:
-                            wall, cpu = t1w - t0w, t1c - t0c
-                    trace.record(WALL_TIME, 0, k, i, rid, wall)
-                    trace.record(CPU_TIME, 0, k, i, rid, cpu)
-                    trace.record(FLOPS, 0, k, i, rid, flops)
-                    trace.record(BYTES, 0, k, i, rid, byts)
-                    trace.record(COMM_BYTES, 0, k, i, rid, comm)
-                    if on_card:
-                        dev[i, k] = ev0.elapsed_time(ev1) / 1e3
-                states[i] = out
-            if on_card:
-                self.device_s[rid] = dev
+                states[i] = take(r, 0, i, states[i])
+        for k in range(1, self.repeats):
+            for r in regions:
+                for i in range(m):
+                    take(r, k, i, inputs[r.region_id][i])
         self.retakes += made
+        trace.meta["takes"] = {"order": "repeat-major", "reduce": "min"}
         trace.meta["retake"] = {"off_cpu_share": OFF_CPU_SHARE,
                                 "most": most, "made": made}
         self.final_states = states

@@ -489,6 +489,11 @@ def _serving(*fault_list, traffic: Callable[[], List], lanes: int = 4,
 
 _TRAIN_KW = (("threshold_frac", 0.45),)
 
+# Timing repeats of each (region, shard) in the wall-clock recovery
+# entries (see ``_train_recovery``): the minimum of three takes, one in
+# each round over the step (core/collector.py::TimedRegionRunner).
+RECOVERY_REPEATS = 3
+
 # When set (set by a caller), every train-backend
 # entry collects through a TraceSpool under this base directory instead of
 # accumulating step traces in memory — the CI spool round-trip gate runs
@@ -559,13 +564,24 @@ def _train_recovery(iters_per_shard: Optional[Tuple[int, ...]] = None,
                     = None, ckpt_every: int = 0,
                     analyzer_kw: Tuple[Tuple[str, Any], ...] = _TRAIN_KW,
                     trace_inject_for: Optional[Callable[[int], Any]]
-                    = None):
+                    = None, repeats: int = 1):
     """Builder for the recovery backend: the same region-instrumented
     smoke Trainer as ``_train``, but supervised by a
     :class:`MitigationPolicy` watching per-step verdict windows — the
     closed loop of the reference's docs/mitigation.md.  Checkpoints go to
     a fresh temporary directory (the remesh path must save/restore
     through it).
+
+    ``repeats`` is the trainer's ``trace_repeats``.  The reference takes
+    one; the port's straggler and MoE recovery entries take
+    :data:`RECOVERY_REPEATS`, because each of their windows is one step
+    judged on single takes of a few milliseconds, and on an H100 one
+    noisy take (the straggler's optimizer at 1.48-1.53x the other
+    shards', an expert probe at 2.8x its neighbours) split the persisting
+    signature or brought a mitigated one back.  The checkpoint-stall
+    entry keeps one: its stall is injected into each repeat from the
+    reference's random stream, which only one repeat keeps equal to the
+    reference's samples.
 
     ``trace_inject_for`` (seed -> TrainerConfig.trace_inject callable)
     plants faults through the trainer's trace-injection seam — the
@@ -591,7 +607,7 @@ def _train_recovery(iters_per_shard: Optional[Tuple[int, ...]] = None,
             ckpt_dir=tempfile.mkdtemp(prefix="repro-recovery-"),
             ckpt_every=ckpt_every, seed=seed, trace=True,
             trace_shards=shards, trace_iters=iters,
-            trace_expert_iters=expert_iters, trace_repeats=1,
+            trace_expert_iters=expert_iters, trace_repeats=repeats,
             trace_inject=(trace_inject_for(seed)
                           if trace_inject_for is not None else None),
             trace_meta={"analyzer_kw": dict(analyzer_kw)})
@@ -716,6 +732,11 @@ class CorpusRunResult:
     # may retry the wall-clock runtime backend; all attempts are
     # reported, not just the one whose result was kept)
     attempt_walls: Tuple[float, ...] = ()
+    # one record per attempt, in the same order, of a wall-clock entry
+    # (runtime, train, recovery): its seed, whether it passed and its
+    # window log (train/mitigate.py::MitigationPolicy.window_log; a
+    # runtime or train entry's whole run is its one window, index None)
+    attempt_logs: Tuple[Dict[str, Any], ...] = ()
     # the collector behind the kept result — lets callers reach the
     # RegionTrace it produced without re-collecting
     collector: Any = None
@@ -890,6 +911,8 @@ def run_entry(entry: CorpusEntry, seed: int = 0,
         r.decisions = policy._analyzer.decisions \
             if policy._analyzer is not None else None
         r.attempt_walls = (time.perf_counter() - t0,)
+        r.attempt_logs = ({"seed": seed, "passed": r.passed,
+                           "windows": policy.window_log()},)
         return r
     if entry.backend in ("runtime", "train"):
         collector.device = kw.get("device")
@@ -910,7 +933,21 @@ def run_entry(entry: CorpusEntry, seed: int = 0,
         # need not be told which kind of fault to wait for.
         r.onset_window = online.onset()
     r.attempt_walls = (time.perf_counter() - t0,)
+    if entry.backend in ("runtime", "train"):
+        r.attempt_logs = ({"seed": seed, "passed": r.passed,
+                           "windows": [_run_window(collector.last_trace,
+                                                   result.verdict)]},)
     return r
+
+
+def _run_window(trace: RegionTrace, verdict: Verdict) -> Dict[str, Any]:
+    """A whole run's trace and verdict in the form of one window of
+    ``MitigationPolicy.window_log``."""
+    from repro_torch.train.mitigate import region_takes
+    return {"index": None, "signature": None,
+            "dissimilarity_paths": sorted(verdict.dissimilarity_paths),
+            "disparity_paths": sorted(verdict.disparity_paths),
+            **region_takes(trace)}
 
 
 def run_entry_robust(entry: CorpusEntry, seed: int = 0,
@@ -920,18 +957,21 @@ def run_entry_robust(entry: CorpusEntry, seed: int = 0,
     (runtime, train, recovery) that fail: collection on a loaded host can lose a
     measurement to a pathological scheduler burst.  The better of the two
     results is kept; ``attempt_walls`` records the wall seconds of *every*
-    attempt so a retry is visible in reports rather than silently folded
-    into one number.  Other entries never retry — they are deterministic,
-    so a failure is a real regression."""
+    attempt, and ``attempt_logs`` its window log, so a retry is visible
+    in reports rather than silently folded into one number.  Other
+    entries never retry — they are deterministic, so a failure is a real
+    regression."""
     r = run_entry(entry, seed=seed, analyzer_overrides=analyzer_overrides)
     if entry.backend in ("runtime", "train", "recovery") and not r.passed:
         r2 = run_entry(entry, seed=seed + 1,
                        analyzer_overrides=analyzer_overrides)
         walls = r.attempt_walls + r2.attempt_walls
+        logs = r.attempt_logs + r2.attempt_logs
         if (r2.passed, r2.recall, r2.precision) >= \
                 (r.passed, r.recall, r.precision):
             r = r2
         r.attempt_walls = walls
+        r.attempt_logs = logs
     return r
 
 
@@ -1262,7 +1302,8 @@ register_entry(CorpusEntry(
     description="Closed loop: live verdicts catch shard 3's 12x fwd_bwd "
                 "straggler at window 1, remesh drops the shard via "
                 "run_with_restarts, post-restart windows are clean",
-    build=_train_recovery(iters_per_shard=(1, 1, 1, 12), steps=6),
+    build=_train_recovery(iters_per_shard=(1, 1, 1, 12), steps=6,
+                          repeats=RECOVERY_REPEATS),
     truth=GroundTruth("dissimilarity", frozenset({"train/fwd_bwd"})),
     analyzer_kw=_TRAIN_KW,
     min_precision=0.2,
@@ -1283,7 +1324,8 @@ register_entry(CorpusEntry(
                 "clean",
     build=_train_recovery(expert_iters=tuple(
         tuple(48 if e == 1 else 4 for e in range(4))
-        for _ in range(4)), steps=6, arch="mixtral-8x22b"),
+        for _ in range(4)), steps=6, arch="mixtral-8x22b",
+        repeats=RECOVERY_REPEATS),
     truth=GroundTruth("disparity", frozenset({"train/moe/expert_1"})),
     analyzer_kw=_TRAIN_KW,
     min_precision=0.2,

@@ -42,7 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core import HOST_BYTES, WALL_TIME, AutoAnalyzer
+from repro_torch.core import CPU_TIME, HOST_BYTES, WALL_TIME, AutoAnalyzer
 from repro_torch.core.trace import RegionTrace
 from repro_torch.stream.online import (DegradedWindow, WindowVerdict,
                                  WindowVerdictLog)
@@ -79,6 +79,22 @@ class MitigationAction:
     kind: str                    # remesh | rebalance_experts | reschedule_ckpt
     paths: Tuple[str, ...]       # verdict paths behind the decision
     detail: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def region_takes(trace: RegionTrace) -> Dict[str, Any]:
+    """Every wall and CPU take of ``trace`` by region path, in ms
+    ((steps, shards, repeats) nested lists), and the CPU clock's tick:
+    what the analyzer judged a window on (its dissimilarity on the CPU
+    times, snapped to the wall below a tick)."""
+    tree = trace.tree()
+    out: Dict[str, Any] = {"cpu_tick_ms": round(
+        float(trace.meta.get("cpu_tick", 0.0)) * 1e3, 3)}
+    for key, name in (("wall_ms", WALL_TIME), ("cpu_ms", CPU_TIME)):
+        a = trace.metric(name)
+        out[key] = {tree[rid].path: np.round(
+            a[:, :, :, j].transpose(0, 2, 1) * 1e3, 3).tolist()
+            for j, rid in enumerate(trace.region_ids)}
+    return out
 
 
 def rebalance_expert_iters(rows: Tuple[Tuple[int, ...], ...]
@@ -139,6 +155,9 @@ class MitigationPolicy:
         # the mitigated signature.
         self.window_candidates: List[Optional[Tuple[str, Tuple[str, ...]]]] \
             = []
+        # Every window's takes (region_takes), parallel to log.windows:
+        # what window_log reports beside each verdict.
+        self.window_takes: List[Dict[str, Any]] = []
         self.remeshed = False
         self._pending: List[RegionTrace] = []
         self._fired: set = set()
@@ -153,6 +172,25 @@ class MitigationPolicy:
         if not self.actions:
             return None
         return self.log.windows[self.actions[0].window].verdict
+
+    def window_log(self) -> List[Dict[str, Any]]:
+        """Each window as a report of a run shows it: its index, its
+        signature (``window_candidates``), the verdict's CCR paths (None
+        for a degraded window) and every take by region path
+        (:func:`region_takes`)."""
+        out = []
+        for w, sig, takes in zip(self.log.windows, self.window_candidates,
+                                 self.window_takes):
+            v = None if w.degraded else w.verdict
+            out.append({
+                "index": w.index,
+                "signature": None if sig is None else [sig[0], list(sig[1])],
+                "dissimilarity_paths": (None if v is None else
+                                        sorted(v.dissimilarity_paths)),
+                "disparity_paths": (None if v is None else
+                                    sorted(v.disparity_paths)),
+                **takes})
+        return out
 
     # -- the observation loop ----------------------------------------------
     def observe(self, trainer: Trainer) -> Optional[MitigationAction]:
@@ -170,6 +208,7 @@ class MitigationPolicy:
                else RegionTrace.merge(self._pending))
         self._pending = []
         stop = trainer.step
+        self.window_takes.append(region_takes(win))
         bad = sorted(k for k, v in win.data.items()
                      if not np.isfinite(v).all())
         if bad:

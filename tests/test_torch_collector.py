@@ -272,6 +272,52 @@ def test_runner_header_states_the_retake_rule(tmp_path):
     assert RegionTrace.load(path).meta["retake"] == rule
 
 
+def test_runner_takes_the_repeats_repeat_major(monkeypatch):
+    """Fault 10's order: rounds over the whole step, each taking every
+    region of every shard once (the first also counts each region's cost
+    on shard 0 and warms each shard up right before its take), so a burst or
+    a drift over one region's takes lands on one round and the minimum
+    over repeats drops it.  Every take is recorded; the state advances
+    once (the first round's outputs), and every round calls a region on
+    the same inputs.  (No take is taken again here: a loaded host's
+    retake would add calls.)"""
+    from repro_torch.core import collector
+    monkeypatch.setattr(collector, "RETAKES", 0)
+    calls = []
+    tree = RegionTree("t")
+    tree.add("a", fn=lambda s, d: calls.append(("a", d)) or s + d)
+    tree.add("b", fn=lambda s, d: calls.append(("b", d)) or s * 2)
+    runner = TimedRegionRunner(tree, warmup=1, repeats=3, device="cpu")
+    trace = runner.run_trace([0.0, 0.0], [1, 2])
+    first = [("a", 1), ("a", 1), ("a", 1), ("a", 2), ("a", 2),
+             ("b", 1), ("b", 1), ("b", 1), ("b", 2), ("b", 2)]
+    assert calls == first + [("a", 1), ("a", 2), ("b", 1), ("b", 2)] * 2
+    assert runner.final_states == [2.0, 4.0]
+    assert trace.meta["takes"] == {"order": "repeat-major",
+                                   "reduce": "min"}
+    assert (trace.metric(WALL_TIME) > 0).all()
+
+
+def test_repeat_major_trace_loads_and_reduces_in_the_reference(tmp_path):
+    """A trace the runner writes now (three takes a sample, the header's
+    ``takes`` rule) loads in the reference's ``RegionTrace`` with every
+    take, and the reference's reduce (min over repeats, the tick snap)
+    gives the port's metrics."""
+    from repro.core.trace import RegionTrace as RefTrace
+    x = torch.ones((32, 32))
+    tree = RegionTree("t")
+    tree.add("mm", fn=lambda s, d: s + float((x @ x).sum()) * d)
+    tree.add("add", fn=lambda s, d: s + d)
+    trace = TimedRegionRunner(tree, warmup=1, repeats=3,
+                              device="cpu").run_trace([0.0] * 3, [1, 2, 3])
+    ref = RefTrace.load(trace.save(str(tmp_path / "t.npz")))
+    assert ref.n_repeats == 3 and ref.meta["takes"] == trace.meta["takes"]
+    for k in trace.data:
+        np.testing.assert_array_equal(np.asarray(ref.data[k]),
+                                      trace.data[k], err_msg=k)
+    _assert_metrics_equal(ref.reduce(), trace.reduce())
+
+
 def test_cost_of_counts_the_collectives_it_issues():
     """``COMM_BYTES``' source: no process group, no collective; the
     reference's op names for what DTensor and torch.distributed issue."""

@@ -138,6 +138,56 @@ def test_new_entries_phase_rehearsed():
         "remesh"
 
 
+def test_new_entries_phase_logs_each_failed_attempt_first(monkeypatch,
+                                                         capsys):
+    """Fault 10's satellite: a failed wall-clock attempt names its own
+    cause.  With the remesh entry held to an action by window 0, which
+    it cannot meet, both attempts (seed 0 and the retry at seed 1) fail
+    and each is logged window by window, before the phase raises: index,
+    signature, CCR paths and every shard's three takes by region."""
+    import json
+    cs = _chip_smoke()
+    name = "train/straggler-remesh-recovery"
+    e = CORPUS[name]
+    monkeypatch.setitem(CORPUS, name, dataclasses.replace(
+        e, recovery=dataclasses.replace(e.recovery, mitigate_by_window=0)))
+    with pytest.raises(AssertionError, match=name):
+        cs.new_entries_phase("cpu", seeds=(0,), names=(name,), phase="21")
+    out = capsys.readouterr().out.splitlines()
+    heads = [i for i, line in enumerate(out)
+             if line.startswith(f"[21] failed attempt {name}@")]
+    assert [out[i].split("@")[1].split(",")[0] for i in heads] == ["0", "1"]
+    windows = [json.loads(line.split("window ", 1)[1])
+               for line in out[heads[0] + 1:heads[1]]]
+    assert [w["index"] for w in windows] == list(range(len(windows)))
+    w0 = windows[0]
+    assert w0["signature"][0] == "remesh"
+    assert "train/fwd_bwd" in w0["signature"][1]
+    assert "train/fwd_bwd" in w0["dissimilarity_paths"]
+    assert np.array(w0["wall_ms"]["train/optimizer"]).shape == (1, 4, 3)
+    assert np.array(w0["cpu_ms"]["train/optimizer"]).shape == (1, 4, 3)
+    assert w0["cpu_tick_ms"] > 0
+    assert np.array(windows[-1]["wall_ms"]["train/fwd_bwd"]).shape == \
+        (1, 3, 3)                                   # after the remesh
+
+
+def test_a_train_entry_attempt_logs_its_run_as_one_window():
+    """A train entry without a mitigation loop logs its whole run as one
+    window: no index, no signature, the verdict's CCR paths, each step's
+    takes by shard."""
+    r = run_entry(CORPUS["train/fwdbwd-straggler-smoke"], seed=0,
+                  analyzer_overrides={"device": "cpu"})
+    (a,) = r.attempt_logs
+    assert (a["seed"], a["passed"]) == (0, r.passed)
+    (w,) = a["windows"]
+    assert (w["index"], w["signature"]) == (None, None)
+    assert w["dissimilarity_paths"] == sorted(
+        r.verdict.dissimilarity_paths)
+    trace = r.collector.last_trace
+    assert np.array(w["wall_ms"]["train/fwd_bwd"]).shape == \
+        (trace.n_steps, trace.n_processes, trace.n_repeats)
+
+
 def test_chip_smoke_freezes_the_heap_around_its_corpus_phases():
     """The corpus phases run with the earlier phases' objects frozen, so
     a full collection inside an entry scans only the entry's own (one

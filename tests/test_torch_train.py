@@ -744,6 +744,86 @@ def test_train_entry_passes_with_the_references_outcome(name):
         assert r.recovery_kind == e.recovery.kind
 
 
+# Fault 10's pin: one on-CPU burst in one take of one shard's region, where
+# single takes split the recovery entries' signature on the card (NVIDIA
+# H100, first attempts at seeds 0-29): the straggler shard 3's optimizer
+# take read 1.48x and 1.53x the other shards' in window 1, so the
+# optimizer joined the CCRs, the signature changed and the remesh came at
+# window 3; after the rebalance an expert_1 take read 2.4x and 2.8x its
+# neighbours and brought the mitigated signature back (window 4 or 5).
+# The burst spins the first timed take (after the warmup) until it reads
+# ``times`` its own wall, past the card's ratios so that the host's own
+# noise does not decide the outcome: 3x on the optimizer; 5x on one
+# expert take, since the hot-expert gate compares the mean over 4 shards
+# with 1.5x the experts' median.  (entry, region, shard, step, times)
+BURSTS = [("train/straggler-remesh-recovery", "train/optimizer", 3, 1, 3.0),
+          ("train/moe-collapse-rebalance-recovery", "train/moe/expert_1",
+           0, 4, 5.0)]
+
+
+@pytest.mark.parametrize("name,region,shard,step,times", BURSTS)
+def test_a_burst_in_one_take_keeps_the_recovery_at_window_1(
+        monkeypatch, name, region, shard, step, times):
+    """A busy-spin (which the CPU's off-CPU retake cannot catch) in one
+    take of one shard's region: the first attempt still acts at window 1
+    with the reference's action and clean windows after, because the
+    take is one of several made repeat-major and the minimum drops it;
+    the spun take itself stays in the window's walls.  No take is taken
+    again, as on the card: on a loaded host the retake would otherwise
+    swap a spun take that was also preempted for a fresh one."""
+    import time
+    from repro_torch.core import TimedRegionRunner
+    from repro_torch.core import collector
+    from repro_torch.scenarios import run_entry
+    from repro_torch.train import loop
+    monkeypatch.setattr(collector, "RETAKES", 0)
+    now = {"step": None, "data": [], "calls": {}, "spun": 0}
+    traced_step, run_trace = loop.Trainer._traced_step, \
+        TimedRegionRunner.run_trace
+    build_tree = loop.train_region_tree
+
+    def traced(self, s):
+        now["step"] = s
+        return traced_step(self, s)
+
+    def run(self, states, data):
+        now["data"], now["calls"] = list(data), {}
+        return run_trace(self, states, data)
+
+    def tree_with_burst(*args, **kw):
+        tree = build_tree(*args, **kw)
+        node = tree.by_path(region)
+        fn = node.fn
+
+        def spun(state, data):
+            i = next(j for j, d in enumerate(now["data"]) if d is data)
+            n = now["calls"][i] = now["calls"].get(i, 0) + 1
+            t0 = time.perf_counter()
+            out = fn(state, data)
+            if (now["step"], i, n) == (step, shard, 2):   # 1: the warmup
+                own = time.perf_counter() - t0
+                while time.perf_counter() - t0 < times * own:
+                    pass
+                now["spun"] += 1
+                now["spun_s"] = time.perf_counter() - t0
+            return out
+        node.fn = spun
+        return tree
+
+    monkeypatch.setattr(loop.Trainer, "_traced_step", traced)
+    monkeypatch.setattr(TimedRegionRunner, "run_trace", run)
+    monkeypatch.setattr(loop, "train_region_tree", tree_with_burst)
+    e = CORPUS[name]
+    r = run_entry(e, seed=0, analyzer_overrides={"device": "cpu"})
+    policy = r.collector.policy
+    assert now["spun"] == 1
+    assert (r.recovery_kind, r.mitigation_window) == (e.recovery.kind, 1), \
+        policy.window_candidates
+    assert r.passed, (r.clean_after, sorted(r.found), sorted(r.missed))
+    takes = np.array(policy.window_takes[step]["wall_ms"][region])[0, shard]
+    assert takes.max() >= now["spun_s"] * 1e3 > takes.min(), takes
+
+
 def test_train_entry_through_the_spool(tmp_path, monkeypatch):
     """With ``TRAIN_SPOOL_BASE`` set, a train entry collects through a
     trace spool (one step a segment) and still passes; the spool's
