@@ -250,7 +250,10 @@ logits, equal tokens and, for MoE, equal expert ids in every layer (read
 from the graph's memory).  The profiled decode window times the graphed
 call (host wall, device busy, idle share, device operations per call,
 profiled launches against the counter, copies to the host) and keeps
-the eager call's row beside it.
+the eager call's row beside it; each window opens and closes
+``PROFILE_PAUSE_S`` away from its calls (the card's device stamps run
+milliseconds off the host's clock), must list every launch's device
+records and no other, and is logged with where any record went.
 
 Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21, 22-24, 26-28, 29 and 32
 count the kernels' launches from 0 and fail if the main path never
@@ -491,6 +494,20 @@ def symbol_counts(rows) -> dict:
     return {"counts": counts, "times": times}
 
 
+# Kineto keeps a device record only if its stamp (the device's clock, as
+# CUPTI converts it to the host's) lies inside the host's recording
+# window, and the two clocks disagree by milliseconds either way.  So
+# recorded calls start this long after recording starts, and where a
+# window is held to the launch counter it closes this long after the
+# final synchronize and, when a warm-up call ran under the profiler,
+# opens this long after that call's synchronize.  Closed right after the
+# synchronize, a decode window dropped its last 4-197 records
+# (deepseek-v2-lite-16b: 16 of 60 eager and 7 of 60 graphed windows, on
+# an H100); opened right after the warm-up's, one in 60 took in the
+# warm-up's last 14.
+PROFILE_PAUSE_S = 0.2
+
+
 def _profile_rows(fn, iters: int) -> list:
     """(device time us, count, key) of every profiler row with device time
     over ``iters`` calls of ``fn``, after one call outside the profile and
@@ -501,7 +518,7 @@ def _profile_rows(fn, iters: int) -> list:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.2)
+        time.sleep(PROFILE_PAUSE_S)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1829,11 +1846,17 @@ def decode_breakdown(backend,
     ported kernel's profiled launches are held to the launch counter over
     the same calls (``profile_complete``; a replay adds its graph's
     captured launches to the counter), and no call may copy a value to
-    the host (deepseek's MoE dispatch included).  CUPTI has dropped
-    single kernel records from such a window (a run listed 519 of 520
-    RMSNorm launches), so a window whose list disagrees with the counter
-    is recorded again, the state carried on, up to ``PROFILE_TRIES``
-    windows in all; the last must agree."""
+    the host (deepseek's MoE dispatch included).  Each window closes
+    ``PROFILE_PAUSE_S`` after its last call (closed right after it, the
+    window's last records fell out of it) and opens as long after the
+    warm-up call (opened at once, it took in the warm-up's last records);
+    a window whose list still disagrees with the counter, or whose raw
+    list lost or took in a device record (``lost_records``: counts can
+    agree while both happen), is recorded again, the state carried on,
+    up to ``PROFILE_TRIES`` windows in all, and if none is whole the
+    phase fails naming the model, the way, every window's counts and
+    where its records were lost.  Each row keeps its way's windows under
+    ``windows`` (the row's is the last)."""
     import torch
     api, model, k = backend.api, backend.model, backend.prefill_chunk
     state = backend.fresh_state(lane=0)
@@ -1847,15 +1870,30 @@ def decode_breakdown(backend,
                                                     pos)[0]}
     out = {}
     for way, call in ways.items():
-        t, pos = tok, k
-        for tries in range(1, PROFILE_TRIES + 1):
-            rows, launched, wall, t = _decode_window(call, t, pos, steps)
+        t, pos, windows = tok, k, []
+        for _ in range(PROFILE_TRIES):
+            rows, launched, wall, t, lost_at = _decode_window(call, t, pos,
+                                                              steps)
             pos += steps + 1
-            if not _profiled_launches(rows, launched)[1]:
+            profiled, lost = _profiled_launches(rows, launched)
+            windows.append({"profiled": profiled, "counted": {
+                n: c for n, c in launched.items() if c}, "lost_at": lost_at})
+            if not (lost or lost_at):
                 break
+        else:
+            raise AssertionError(
+                f"{backend.cfg.name}'s {way} decode call: none of "
+                f"{PROFILE_TRIES} profiled windows of {steps} calls was "
+                f"whole (profiled against counted launches; what the raw "
+                f"list lost or took in): "
+                + "; ".join(f"window {i} {w['profiled']} against "
+                            f"{w['counted']}, {w['lost_at'] or 'nothing'}"
+                            for i, w in enumerate(windows, 1))
+                + (f"; the last window: {lost}" if lost else ""))
         out[way] = row = _window_row(
-            rows, launched, wall, steps, tries,
+            rows, launched, wall, steps,
             decode_symbols(backend.cfg, backend.max_len))
+        row["windows"] = windows
         if row["copies_to_host"]:
             raise AssertionError(
                 f"{backend.cfg.name}'s {way} decode call copies "
@@ -1863,7 +1901,7 @@ def decode_breakdown(backend,
     return {**out["graphed"], "eager": out["eager"]}
 
 
-def _window_row(rows, launched: dict, wall: float, steps: int, tries: int,
+def _window_row(rows, launched: dict, wall: float, steps: int,
                 symbols: dict) -> dict:
     """A profiled window's row: see :func:`decode_breakdown`."""
     busy = sum(r[0] for r in rows) / 1e6
@@ -1883,7 +1921,7 @@ def _window_row(rows, launched: dict, wall: float, steps: int, tries: int,
             "launches": sum(r[1] for r in rows) / steps,
             "profiled_launches": profiled,
             "counted_launches": {n: c for n, c in launched.items() if c},
-            "symbols": sc["counts"], "profile_tries": tries,
+            "symbols": sc["counts"],
             "top": [(t / steps / 1e3, c // steps, key[:90])
                     for t, c, key in rows[:10]]}
 
@@ -1891,9 +1929,12 @@ def _window_row(rows, launched: dict, wall: float, steps: int, tries: int,
 def _decode_window(call, tok, pos: int, steps: int) -> tuple:
     """One warm-up decode call ``call(tok, pos)`` -> logits (records
     dropped), then ``steps`` greedy decode calls recorded by
-    torch.profiler (CUDA activity).  Returns (profiler rows with device
-    time, launch-counter delta over the recorded calls, their host wall in
-    s, the last token)."""
+    torch.profiler (CUDA activity), with ``PROFILE_PAUSE_S`` between the
+    warm-up and the start of recording, and of recording before the first
+    call and after the last.  Returns (profiler rows with device time,
+    launch-counter delta over the recorded calls, their host wall in s,
+    the last token, where the raw list lost device records or took in
+    others: :func:`lost_records` of :func:`_launch_records`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch import kernels as K
@@ -1903,11 +1944,9 @@ def _decode_window(call, tok, pos: int, steps: int) -> tuple:
         logits = call(tok, pos)
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
         prof.step()  # the warm-up call's records are dropped
-        # Recording starts at that step; CUPTI can miss the kernels of the
-        # first milliseconds after it (a run lost the first layer's), so
-        # the recorded calls start after a pause.
-        time.sleep(0.2)
+        time.sleep(PROFILE_PAUSE_S)
         before = dict(K.LAUNCHES)
         t0 = time.perf_counter()
         for i in range(1, steps + 1):
@@ -1916,13 +1955,58 @@ def _decode_window(call, tok, pos: int, steps: int) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {n: K.LAUNCHES[n] - before[n] for n in before}
+        time.sleep(PROFILE_PAUSE_S)
         prof.step()  # ends the recorded step
     # Only rows with device time: the CUDA activity also records runtime
     # calls (cudaLaunchKernel, ...), which take none.
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages() if e.device_time_total > 0),
                   reverse=True)
-    return rows, launched, wall, tok
+    return rows, launched, wall, tok, lost_records(*_launch_records(prof))
+
+
+def _launch_records(prof) -> tuple:
+    """A closed profile's raw Kineto list as launches: (each runtime
+    launch in launch order as (its API call, the device records it has),
+    the device records of launches outside the list).  A kernel, copy or
+    memset launch has one device record; a graph launch one per node.  A
+    device record shares its launch's correlation id."""
+    from torch.autograd import DeviceType
+    device, runtime = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            device[e.correlation_id()] = device.get(e.correlation_id(),
+                                                    0) + 1
+        elif any(w in e.name() for w in ("Launch", "Memcpy", "Memset")):
+            runtime[e.correlation_id()] = e.name()
+    return ([(runtime[c], device.get(c, 0)) for c in sorted(runtime)],
+            sum(n for c, n in device.items() if c not in runtime))
+
+
+def lost_records(launches, strays: int = 0) -> str:
+    """Where a window's raw list lost device records, from its launches
+    ((API call, device records) in launch order, :func:`_launch_records`):
+    a launch lost what it has fewer than one record, or, a graph launch,
+    than the most any launch of the window's graphs has.  ``strays``, the
+    device records of launches outside the window, are named too.  ""
+    when none was lost and none strayed in."""
+    most = max((n for api, n in launches if "Graph" in api), default=1)
+    short = [(i, want - n) for i, (api, n) in enumerate(launches)
+             for want in [most if "Graph" in api else 1] if n < want]
+    where = []
+    if short:
+        first, last = short[0][0], short[-1][0]
+        tail = (last == len(launches) - 1
+                and last - first + 1 == len(short))
+        where.append(
+            f"{sum(n for _, n in short)} device records of {len(short)} "
+            f"launches, launch {first + 1} to {last + 1} of "
+            f"{len(launches)}"
+            + (" (the window's last launches)" if tail else ""))
+    if strays:
+        where.append(f"{strays} device records of launches made before "
+                     f"the window opened")
+    return "; ".join(where)
 
 
 GRAPH_LANES = 2
@@ -2142,12 +2226,16 @@ def log_breakdown(phase: str, bd: dict) -> None:
             f"device ms per call (all of each kernel's CUDA symbols) "
             f"{row['ported_ms']}; launches over the {DECODE_PROFILE_STEPS} "
             f"profiled calls: profiler {row['profiled_launches']}, launch "
-            f"counter {row['counted_launches']} (held equal; window "
-            f"{row['profile_tries']} of at most {PROFILE_TRIES}); by CUDA "
-            f"symbol {row['symbols']}; kernels by device time (ms per call, "
-            f"launches per call):")
+            f"counter {row['counted_launches']} (held equal; the row is "
+            f"window {len(row['windows'])} of at most {PROFILE_TRIES}); by "
+            f"CUDA symbol {row['symbols']}; kernels by device time (ms per "
+            f"call, launches per call):")
         for t, c, key in row["top"]:
             log(f"    {t:10.5f} {c:6d}  {key}")
+        for i, w in enumerate(row["windows"], 1):
+            log(f"[{phase}]   {way.split()[0]} window {i}: profiler "
+                f"{w['profiled']}, launch counter {w['counted']}, lost "
+                f"records: {w['lost_at'] or 'none'}")
 
 
 def log_graph_parity(phase: str, gp: dict) -> None:
@@ -2860,24 +2948,25 @@ def train_phase(argv, device, ranges=()) -> dict:
 
 
 def train_breakdown(trainer) -> dict:
-    """One more training step under torch.profiler (CUDA activity, after
-    a pause: CUPTI can miss the first milliseconds): the host wall of the
-    step, the device's busy time (its kernels' and copies' times summed),
-    the idle share 1 - busy / wall, the device operations, each ported
-    kernel's launches (held to the launch counter) and the operations
-    that took longest."""
+    """One more training step under torch.profiler (CUDA activity, a
+    pause of ``PROFILE_PAUSE_S`` recorded before and after it): the host
+    wall of the step, the device's busy time (its kernels' and copies'
+    times summed), the idle share 1 - busy / wall, the device
+    operations, each ported kernel's launches (held to the launch
+    counter) and the operations that took longest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels as K
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.2)
+        time.sleep(PROFILE_PAUSE_S)
         before = dict(K.LAUNCHES)
         t0 = time.perf_counter()
         trainer.run(1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {n: K.LAUNCHES[n] - before[n] for n in before}
+        time.sleep(PROFILE_PAUSE_S)
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages() if e.device_time_total > 0),
                   reverse=True)
@@ -2908,9 +2997,10 @@ def range_breakdown(trainer, names) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.2)
+        time.sleep(PROFILE_PAUSE_S)
         trainer.run(1)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
     events = prof.events()
     busy = sum(e.device_time_total for e in events
                if e.device_type == DeviceType.CUDA
