@@ -119,7 +119,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    its recompute (``recompute_per_step``; every training check counts
    them);
    the median step, tokens/s and peak memory; one step profiled (device
-   busy against host wall, idle share, top operations); then a traced
+   busy against host wall, idle share, top operations, each window's
+   launches against the counter and lost records); then a traced
    ``Trainer`` at full width, 4 emulated shards with fwd_bwd iterations
    (1, 1, 1, 4), 2 steps, analyzed on the kernel and numpy lanes with
    equal verdicts naming train/fwd_bwd;
@@ -250,10 +251,16 @@ logits, equal tokens and, for MoE, equal expert ids in every layer (read
 from the graph's memory).  The profiled decode window times the graphed
 call (host wall, device busy, idle share, device operations per call,
 profiled launches against the counter, copies to the host) and keeps
-the eager call's row beside it; each window opens and closes
-``PROFILE_PAUSE_S`` away from its calls (the card's device stamps run
-milliseconds off the host's clock), must list every launch's device
-records and no other, and is logged with where any record went.
+the eager call's row beside it.  Every profiled window (a decode call's,
+a training step's, a kernel's or a library call's timing) starts
+recording ``PROFILE_PAUSE_S`` after a warm-up launched under the freshly
+turned-on CUPTI (whose first ~10 ms of launches lose their device
+records), and again as long before its calls, and closes as long after
+them (the card's device stamps run milliseconds off the host's clock);
+it must list every launch's device records and no other, and the ported
+kernels' launches the counter counts, or it is recorded again, up to
+``PROFILE_TRIES`` windows, before the phase fails; decode and training
+windows are logged with where any record went.
 
 Phases 4, 5, 8, 11, 12, 13, 14, 17, 18, 20, 21, 22-24, 26-28, 29 and 32
 count the kernels' launches from 0 and fail if the main path never
@@ -508,43 +515,154 @@ def symbol_counts(rows) -> dict:
 PROFILE_PAUSE_S = 0.2
 
 
+PROFILE_TRIES = 3
+# What :func:`_profile_rows` cost over a run: its calls, the windows they
+# recorded (a lossy one is recorded again), the seconds of the two pauses
+# a window gained against a window recorded from its first launch (after
+# the warm-up, before the close) and of reading each window's raw list.
+PROFILE_ROWS_COST = {"calls": 0, "windows": 0, "pause_s": 0.0,
+                     "check_s": 0.0}
+
+
+# Launches made under the freshly turned-on CUPTI before a window starts
+# recording (:func:`_warm_up_cupti`).  On an H100, rwkv6-3b training
+# steps recorded after none or two such launches lost the device records
+# of their first 1-58 launches in 78 of 118 windows (the number grew with
+# the windows the process had recorded); decode windows, warmed up by one
+# decode call, lost none of 166.
+CUPTI_WARM_UP_LAUNCHES = 8192
+
+
+def _warm_up_cupti() -> None:
+    """``CUPTI_WARM_UP_LAUNCHES`` launches of a one-element kernel: the
+    first launches under a freshly turned-on CUPTI, whose device records
+    are lost."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    for _ in range(CUPTI_WARM_UP_LAUNCHES):
+        x.add_(1)
+
+
+def _record_window(run, activities, warm_up=None) -> tuple:
+    """``run()`` recorded by torch.profiler over ``activities``: the
+    profiler turns CUPTI on, :func:`_warm_up_cupti` and then ``warm_up()``
+    run and are synchronized, and only ``PROFILE_PAUSE_S`` later does
+    recording start (a one-cycle schedule: the warm-up's records are
+    dropped; opened right at its synchronize, a window once took in its
+    last records), as long again before ``run()``, and it closes
+    ``PROFILE_PAUSE_S`` after ``run()``'s final synchronize (closed right
+    at it, a window lost its last records).  The first launches under a
+    freshly turned-on CUPTI lose their device records, each counted in
+    Kineto's ``Out-of-range``, however long the window has been open
+    before them.  Returns (the closed profile, the launch counter's
+    delta over ``run()``, its host wall in s)."""
+    import torch
+    from torch.profiler import profile, schedule
+    from repro_torch import kernels as K
+    torch.cuda.synchronize()
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        _warm_up_cupti()
+        if warm_up is not None:
+            warm_up()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
+        prof.step()  # the warm-up's records are dropped
+        time.sleep(PROFILE_PAUSE_S)
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {n: K.LAUNCHES[n] - before[n] for n in before}
+        time.sleep(PROFILE_PAUSE_S)
+        prof.step()  # ends the recorded step
+    return prof, launched, wall
+
+
+def _device_rows(prof) -> list:
+    """(device time us, count, key) of every row of a closed CUDA-only
+    profile with device time, longest first: the CUDA activity also
+    records runtime calls (cudaLaunchKernel, ...), which take none."""
+    return sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  reverse=True)
+
+
+def _until_whole(record, what: str, span: str = "") -> tuple:
+    """Profiled windows of ``record()`` -> (rows, launched, lost_at, ...),
+    up to ``PROFILE_TRIES``, until one is whole: the rows' launches of
+    every ported kernel equal the launch counter's delta ``launched``
+    (:func:`_profiled_launches`) and the raw list lost and took in no
+    device record (``lost_at`` "": counts can agree while both happen).
+    Returns (the whole window's ``record()``, every window's profiled and
+    counted launches and ``lost_at``); if no window is whole, fails naming
+    ``what``, every window's counts and where its records went."""
+    windows = []
+    for _ in range(PROFILE_TRIES):
+        got = record()
+        rows, launched, lost_at = got[:3]
+        profiled, lost = _profiled_launches(rows, launched)
+        windows.append({"profiled": profiled, "counted": {
+            n: c for n, c in launched.items() if c}, "lost_at": lost_at})
+        if not (lost or lost_at):
+            return got, windows
+    raise AssertionError(
+        f"{what}: none of {PROFILE_TRIES} profiled windows{span} was whole "
+        f"(profiled against counted launches; what the raw list lost or "
+        f"took in): "
+        + "; ".join(f"window {i} {w['profiled']} against {w['counted']}, "
+                    f"{w['lost_at'] or 'nothing'}"
+                    for i, w in enumerate(windows, 1))
+        + (f"; the last window: {lost}" if lost else ""))
+
+
 def _profile_rows(fn, iters: int) -> list:
     """(device time us, count, key) of every profiler row with device time
-    over ``iters`` calls of ``fn``, after one call outside the profile and
-    a pause inside it: CUPTI can miss the kernels of the first milliseconds
-    after recording starts (a run lost all 50 calls of a 0.02 ms kernel)."""
+    over ``iters`` calls of ``fn``, after one call outside the profile,
+    recorded by :func:`_record_window` (recorded from the first launch
+    on, a run once lost all 50 calls of a 0.02 ms kernel).  The window is
+    recorded again (:func:`_until_whole`)
+    while its rows' ported launches disagree with the launch counter (a
+    library call's rows list none), its raw list lost or took in a device
+    record, or it lists no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAUSE_S)
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    return [(e.device_time_total, e.count, e.key)
-            for e in prof.key_averages() if e.device_time_total > 0]
+
+    def record():
+        prof, launched, _ = _record_window(calls, [ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        lost_at = lost_records(*_launch_records(prof))
+        PROFILE_ROWS_COST["check_s"] += time.perf_counter() - t0
+        rows = _device_rows(prof)
+        PROFILE_ROWS_COST["windows"] += 1
+        PROFILE_ROWS_COST["pause_s"] += 2 * PROFILE_PAUSE_S
+        return rows, launched, lost_at or ("" if rows else
+                                           "no device time listed")
+    PROFILE_ROWS_COST["calls"] += 1
+    (rows, _, _), _ = _until_whole(
+        record, f"{iters} calls of {getattr(fn, '__qualname__', fn)}")
+    return rows
 
 
-PROFILE_TRIES = 3
-
-
-def device_ms(fn, kernel: str, iters: int = 100):
+def device_ms(fn, kernel: str, iters: int = 100) -> float:
     """Device time per wrapper call of the ported kernel ``kernel``: the
     device time of all its CUDA symbols (a split-K call's split and merge
     kernels together) over ``iters`` calls of ``fn``, divided by the
-    profiled launches of its entry kernels (CUPTI may list fewer); from
-    torch.profiler's CUPTI trace, profiled again (``PROFILE_TRIES`` in
-    all) while it lists no launch, and None when it records no device
-    time.  Back-to-back calls through the wrapper can be bound by the
-    host's per-call work instead; this separates the two."""
-    for _ in range(PROFILE_TRIES):
-        sc = symbol_counts(_profile_rows(fn, iters))
-        calls = sum(sc["counts"].get(s, 0) for s in ENTRY_SYMBOLS[kernel])
-        if calls:
-            break
-    total_us = sum(sc["times"].get(s, 0.0) for s in _symbols(kernel))
-    return total_us / calls / 1e3 if calls and total_us > 0 else None
+    profiled launches of its entry kernels (held to the launch counter by
+    :func:`_profile_rows`); from torch.profiler's CUPTI trace.
+    Back-to-back calls through the wrapper can be bound by the host's
+    per-call work instead; this separates the two."""
+    sc = symbol_counts(_profile_rows(fn, iters))
+    calls = sum(sc["counts"].get(s, 0) for s in ENTRY_SYMBOLS[kernel])
+    return sum(sc["times"].get(s, 0.0) for s in _symbols(kernel)) / calls / 1e3
 
 
 def library_device_ms(fn, iters: int = 50):
@@ -572,10 +690,7 @@ def time_kernel(m: int, n: int, k: int) -> dict:
 
     def library():
         return library_rows(pts, sq, idx)
-    for _ in range(PROFILE_TRIES):
-        symbols = symbol_counts(_profile_rows(kernel, 20))["counts"]
-        if symbols:
-            break
+    symbols = symbol_counts(_profile_rows(kernel, 20))["counts"]
     if set(symbols) != {SEED_ROWS_SYMBOLS[plan.path]}:
         raise AssertionError(f"(m, n, k) = {(m, n, k)} plans the "
                              f"{plan.path} path but the profiler lists "
@@ -1870,26 +1985,16 @@ def decode_breakdown(backend,
                                                     pos)[0]}
     out = {}
     for way, call in ways.items():
-        t, pos, windows = tok, k, []
-        for _ in range(PROFILE_TRIES):
-            rows, launched, wall, t, lost_at = _decode_window(call, t, pos,
-                                                              steps)
-            pos += steps + 1
-            profiled, lost = _profiled_launches(rows, launched)
-            windows.append({"profiled": profiled, "counted": {
-                n: c for n, c in launched.items() if c}, "lost_at": lost_at})
-            if not (lost or lost_at):
-                break
-        else:
-            raise AssertionError(
-                f"{backend.cfg.name}'s {way} decode call: none of "
-                f"{PROFILE_TRIES} profiled windows of {steps} calls was "
-                f"whole (profiled against counted launches; what the raw "
-                f"list lost or took in): "
-                + "; ".join(f"window {i} {w['profiled']} against "
-                            f"{w['counted']}, {w['lost_at'] or 'nothing'}"
-                            for i, w in enumerate(windows, 1))
-                + (f"; the last window: {lost}" if lost else ""))
+        at = {"tok": tok, "pos": k}
+
+        def record():
+            rows, launched, wall, at["tok"], lost_at = _decode_window(
+                call, at["tok"], at["pos"], steps)
+            at["pos"] += steps + 1
+            return rows, launched, lost_at, wall
+        (rows, launched, _, wall), windows = _until_whole(
+            record, f"{backend.cfg.name}'s {way} decode call",
+            f" of {steps} calls")
         out[way] = row = _window_row(
             rows, launched, wall, steps,
             decode_symbols(backend.cfg, backend.max_len))
@@ -1927,42 +2032,27 @@ def _window_row(rows, launched: dict, wall: float, steps: int,
 
 
 def _decode_window(call, tok, pos: int, steps: int) -> tuple:
-    """One warm-up decode call ``call(tok, pos)`` -> logits (records
-    dropped), then ``steps`` greedy decode calls recorded by
-    torch.profiler (CUDA activity), with ``PROFILE_PAUSE_S`` between the
-    warm-up and the start of recording, and of recording before the first
-    call and after the last.  Returns (profiler rows with device time,
+    """One decode call ``call(tok, pos)`` -> logits as the warm-up of
+    :func:`_record_window` (CUDA activity), then ``steps`` greedy decode
+    calls recorded.  Returns (profiler rows with device time, the
     launch-counter delta over the recorded calls, their host wall in s,
     the last token, where the raw list lost device records or took in
     others: :func:`lost_records` of :func:`_launch_records`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from repro_torch import kernels as K
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        logits = call(tok, pos)
-        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAUSE_S)
-        prof.step()  # the warm-up call's records are dropped
-        time.sleep(PROFILE_PAUSE_S)
-        before = dict(K.LAUNCHES)
-        t0 = time.perf_counter()
+    from torch.profiler import ProfilerActivity
+    at = {"tok": tok}
+
+    def greedy(i):
+        logits = call(at["tok"], pos + i)
+        at["tok"] = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+
+    def calls():
         for i in range(1, steps + 1):
-            logits = call(tok, pos + i)
-            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = {n: K.LAUNCHES[n] - before[n] for n in before}
-        time.sleep(PROFILE_PAUSE_S)
-        prof.step()  # ends the recorded step
-    # Only rows with device time: the CUDA activity also records runtime
-    # calls (cudaLaunchKernel, ...), which take none.
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages() if e.device_time_total > 0),
-                  reverse=True)
-    return rows, launched, wall, tok, lost_records(*_launch_records(prof))
+            greedy(i)
+    prof, launched, wall = _record_window(calls, [ProfilerActivity.CUDA],
+                                          warm_up=lambda: greedy(0))
+    return (_device_rows(prof), launched, wall, at["tok"],
+            lost_records(*_launch_records(prof)))
 
 
 def _launch_records(prof) -> tuple:
@@ -1974,10 +2064,13 @@ def _launch_records(prof) -> tuple:
     from torch.autograd import DeviceType
     device, runtime = {}, {}
     for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():   # a range's span, with CPU activity
+            continue
         if e.device_type() == DeviceType.CUDA:
             device[e.correlation_id()] = device.get(e.correlation_id(),
                                                     0) + 1
-        elif any(w in e.name() for w in ("Launch", "Memcpy", "Memset")):
+        elif e.name().startswith("cu") and any(
+                w in e.name() for w in ("Launch", "Memcpy", "Memset")):
             runtime[e.correlation_id()] = e.name()
     return ([(runtime[c], device.get(c, 0)) for c in sorted(runtime)],
             sum(n for c, n in device.items() if c not in runtime))
@@ -2232,10 +2325,31 @@ def log_breakdown(phase: str, bd: dict) -> None:
             f"call, launches per call):")
         for t, c, key in row["top"]:
             log(f"    {t:10.5f} {c:6d}  {key}")
-        for i, w in enumerate(row["windows"], 1):
-            log(f"[{phase}]   {way.split()[0]} window {i}: profiler "
-                f"{w['profiled']}, launch counter {w['counted']}, lost "
-                f"records: {w['lost_at'] or 'none'}")
+        log_windows(phase, way.split()[0], row["windows"])
+
+
+def log_windows(phase: str, what: str, windows) -> None:
+    """One line for each profiled window of a row (the row's is the
+    last): its ported launches, the launch counter's, and where its raw
+    list lost device records or took in others."""
+    for i, w in enumerate(windows, 1):
+        log(f"[{phase}]   {what} window {i}: profiler {w['profiled']}, "
+            f"launch counter {w['counted']}, lost records: "
+            f"{w['lost_at'] or 'none'}")
+
+
+def log_train_breakdown(phase: str, bd: dict) -> None:
+    log(f"[{phase}] one training step (torch.profiler, CUDA only): host "
+        f"wall {bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} ms, "
+        f"idle share {bd['idle_share']:.4f}, {bd['operations']} device "
+        f"operations; ported kernels' device ms {bd['ported_ms']}, launches"
+        f" profiled {bd['profiled_launches']} against counted "
+        f"{bd['counted_launches']} (held equal; the row is window "
+        f"{len(bd['windows'])} of at most {PROFILE_TRIES}); operations by "
+        f"device time (ms, count):")
+    for t, n, key in bd["top"]:
+        log(f"    {t:10.4f} {n:6d}  {key}")
+    log_windows(phase, "training", bd["windows"])
 
 
 def log_graph_parity(phase: str, gp: dict) -> None:
@@ -2948,36 +3062,32 @@ def train_phase(argv, device, ranges=()) -> dict:
 
 
 def train_breakdown(trainer) -> dict:
-    """One more training step under torch.profiler (CUDA activity, a
-    pause of ``PROFILE_PAUSE_S`` recorded before and after it): the host
-    wall of the step, the device's busy time (its kernels' and copies'
-    times summed), the idle share 1 - busy / wall, the device
-    operations, each ported kernel's launches (held to the launch
-    counter) and the operations that took longest."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import kernels as K
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAUSE_S)
-        before = dict(K.LAUNCHES)
-        t0 = time.perf_counter()
-        trainer.run(1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = {n: K.LAUNCHES[n] - before[n] for n in before}
-        time.sleep(PROFILE_PAUSE_S)
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages() if e.device_time_total > 0),
-                  reverse=True)
+    """One more training step recorded by :func:`_record_window`
+    (torch.profiler, CUDA activity): the host wall of the step, the
+    device's busy time (its kernels' and copies' times summed), the idle
+    share 1 - busy / wall, the device operations, each ported kernel's
+    launches and the operations that took longest.  A window is whole
+    only if those launches equal the launch counter's and its raw list
+    lost and took in no device record; otherwise one more step is
+    recorded, up to ``PROFILE_TRIES`` (:func:`_until_whole`), and the row
+    is the whole window's, with every window under ``windows``."""
+    from torch.profiler import ProfilerActivity
+
+    def record():
+        prof, launched, wall = _record_window(lambda: trainer.run(1),
+                                              [ProfilerActivity.CUDA])
+        return (_device_rows(prof), launched,
+                lost_records(*_launch_records(prof)), wall)
+    (rows, launched, _, wall), windows = _until_whole(
+        record, f"{trainer.cfg.name}'s training step")
     busy = sum(r[0] for r in rows) / 1e6
-    profiled, lost = _profiled_launches(rows, launched)
     sc = symbol_counts(rows)
     return {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
             "idle_share": 1.0 - busy / wall,
             "operations": sum(r[1] for r in rows),
-            "profiled_launches": profiled, "lost": lost,
-            "counted_launches": {n: c for n, c in launched.items() if c},
+            "profiled_launches": windows[-1]["profiled"],
+            "counted_launches": windows[-1]["counted"],
+            "windows": windows,
             "ported_ms": {n: sum(sc["times"].get(s, 0.0)
                                  for s in _symbols(n)) / 1e3
                           for n, c in launched.items() if c},
@@ -2985,27 +3095,36 @@ def train_breakdown(trainer) -> dict:
 
 
 def range_breakdown(trainer, names) -> dict:
-    """One more training step under torch.profiler with CPU and CUDA
-    activity (apart from :func:`train_breakdown`'s, whose host wall the
-    CPU activity would slow): the device's busy time (kernels and copies,
-    not the annotations' spans) and, per profiler range in ``names``
-    (``torch.profiler.record_function``), its calls and the device time
-    of the kernels launched inside it."""
-    import torch
+    """One more training step recorded by :func:`_record_window` with CPU
+    and CUDA activity (apart from :func:`train_breakdown`'s, whose host
+    wall the CPU activity would slow): the device's busy time (kernels
+    and copies, not the annotations' spans) and, per profiler range in
+    ``names`` (``torch.profiler.record_function``), its calls and the
+    device time of the kernels launched inside it.  Held whole as
+    :func:`train_breakdown`'s step is, its device records' ported
+    launches against the launch counter."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAUSE_S)
-        trainer.run(1)
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAUSE_S)
-    events = prof.events()
-    busy = sum(e.device_time_total for e in events
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)) / 1e3
-    out = {"busy_ms": busy, "ranges": {}}
+    from torch.profiler import ProfilerActivity
+
+    def record():
+        prof, launched, _ = _record_window(
+            lambda: trainer.run(1),
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        events = prof.events()
+        per = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA and \
+                    not getattr(e, "is_user_annotation", False):
+                t, c = per.get(e.name, (0.0, 0))
+                per[e.name] = (t + e.device_time_total, c + 1)
+        rows = sorted(((t, c, key) for key, (t, c) in per.items()),
+                      reverse=True)
+        return rows, launched, lost_records(*_launch_records(prof)), events
+    (rows, _, _, events), windows = _until_whole(
+        record, f"{trainer.cfg.name}'s training step with profiler ranges")
+    out = {"busy_ms": sum(r[0] for r in rows) / 1e3, "ranges": {},
+           "profiled_launches": windows[-1]["profiled"],
+           "counted_launches": windows[-1]["counted"], "windows": windows}
     for name in names:
         hits = [e for e in events
                 if e.name == name and e.device_type == DeviceType.CPU]
@@ -3532,15 +3651,8 @@ def ssm_training_phases() -> dict:
         f"{rtrained['peak_memory_bytes']} bytes; wall "
         f"{rtrained['wall_s']:.1f} s")
     bd = rtrained["breakdown"]
-    log(f"[27] one training step (torch.profiler, CUDA only): host wall "
-        f"{bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} ms, idle "
-        f"share {bd['idle_share']:.4f}, {bd['operations']} device "
-        f"operations; ported kernels' device ms {bd['ported_ms']}, launches"
-        f" profiled {bd['profiled_launches']} against counted "
-        f"{bd['counted_launches']}{'; ' + bd['lost'] if bd['lost'] else ''}"
-        f"; operations by device time (ms, count):")
-    for ms, n, key in bd["top"]:
-        log(f"    {ms:10.4f} {n:6d}  {key}")
+    log_train_breakdown("27", bd)
+    log_windows("27", "ranges' training", rtrained["ranges"]["windows"])
     layers = get_arch("rwkv6-3b").full.n_layers
     rtrained["shares"] = sh = wkv6_shares(bd, rtrained["ranges"], layers)
     log(f"[27] WKV-6 in the profiled steps: the kernel (forward and "
@@ -4604,16 +4716,7 @@ def main() -> int:
         f"{trained['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{trained['peak_memory_bytes']} bytes; wall {trained['wall_s']:.1f}"
         f" s")
-    bd = trained["breakdown"]
-    log(f"[17] one training step (torch.profiler, CUDA only): host wall "
-        f"{bd['wall_ms']:.4f} ms, device busy {bd['busy_ms']:.4f} ms, idle "
-        f"share {bd['idle_share']:.4f}, {bd['operations']} device "
-        f"operations; ported kernels' device ms {bd['ported_ms']}, launches"
-        f" profiled {bd['profiled_launches']} against counted "
-        f"{bd['counted_launches']}{'; ' + bd['lost'] if bd['lost'] else ''}"
-        f"; operations by device time (ms, count):")
-    for t, n, key in bd["top"]:
-        log(f"    {t:10.4f} {n:6d}  {key}")
+    log_train_breakdown("17", trained["breakdown"])
     traced = traced_train_phase(get_arch("st-100m").full, "cuda")
     log(f"[17] traced trainer st-100m FULL, shards' fwd_bwd iterations "
         f"{list(TRACE_ITERS)}, {TRACE_STEPS} steps: "
@@ -4874,6 +4977,12 @@ def main() -> int:
         "fleet": {lane: {"wall_s": r["wall_s"], "launches": r["launches"],
                          "decisions": r["decisions"]}
                   for lane, r in lanes["fleet"].items()}}
+    c = PROFILE_ROWS_COST
+    log(f"chip_smoke: _profile_rows recorded {c['windows']} windows for "
+        f"{c['calls']} calls ({c['windows'] - c['calls']} recorded again); "
+        f"their pauses after the warm-up and before the close took "
+        f"{c['pause_s']:.1f} s, reading their raw lists {c['check_s']:.1f} "
+        f"s")
     log(f"chip_smoke: phases 1-32 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card)
